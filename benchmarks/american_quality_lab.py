@@ -20,11 +20,12 @@ estimate E[LSMC price] by averaging many independent key draws per cell of
 the tree. MC noise is driven below the bias scale by the rep count (the
 per-cell SE is printed next to the bias so the split is honest).
 
-Run on a real TPU: `python benchmarks/american_quality_lab.py`.
+Run on the card: `python benchmarks/american_quality_lab.py`.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -33,8 +34,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from benchmarks._timing import lab_parser
 
 N_DATES = 16
 N_HELDOUT = 64
@@ -70,7 +69,9 @@ def heldout_contracts() -> np.ndarray:
 
 
 def main() -> None:
-    parser = lab_parser(__doc__.splitlines()[0], default_reps=16)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--reps", type=int, default=16, help="independent seeds per contract")
+    parser.add_argument("--quick", action="store_true", help="fewest reps only")
     args = parser.parse_args()
     from spectralmc_tpu.ops.american import (
         bermudan_tree_price,

@@ -11,7 +11,7 @@ import sys
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-# Honor JAX_PLATFORMS even where a TPU plugin overrides the env var
+# Honor JAX_PLATFORMS even where an accelerator plugin overrides the env var
 import os
 if os.environ.get("JAX_PLATFORMS"):
     import jax

@@ -2,7 +2,7 @@
 (NEW capability; the reference is single-process by policy, SURVEY §2.9).
 
 Launches itself twice: each worker process joins the distributed runtime
-over localhost (the same call a TPU-pod process makes with no arguments),
+over localhost (a cluster process passes its own coordinator, count and id),
 builds the global (slice, batch, paths) mesh, and trains in SPMD with
 blockchain commits gated to process 0.
 

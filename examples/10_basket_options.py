@@ -1,4 +1,4 @@
-"""Example 10 — multi-asset basket options: correlated GBMs on the MXU.
+"""Example 10 — multi-asset basket options: correlated GBMs.
 
 Three correlated assets, options on the weighted basket. The geometric
 basket is exactly lognormal under log-Euler, so its closed form grades the
@@ -12,7 +12,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-# Honor JAX_PLATFORMS even where a TPU plugin overrides the env var
+# Honor JAX_PLATFORMS even where an accelerator plugin overrides the env var
 import os
 
 if os.environ.get("JAX_PLATFORMS"):

@@ -1,4 +1,4 @@
-"""Example 11 — American options: Longstaff-Schwartz on TPU.
+"""Example 11 — American options: Longstaff-Schwartz in JAX.
 
 Early exercise on the timestep grid as one backward lax.scan; the oracle is
 a Bermudan-aware binomial tree restricted to the SAME exercise dates. Run:
@@ -11,7 +11,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-# Honor JAX_PLATFORMS even where a TPU plugin overrides the env var
+# Honor JAX_PLATFORMS even where an accelerator plugin overrides the env var
 import os
 
 if os.environ.get("JAX_PLATFORMS"):

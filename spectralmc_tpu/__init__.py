@@ -1,4 +1,4 @@
-"""spectralmc_tpu — a TPU-native spectral Monte-Carlo learning framework.
+"""spectralmc_tpu — a JAX-native spectral Monte-Carlo learning framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of SpectralMC
 (reference: Tuee22/SpectralMC): complex-valued neural networks trained online
@@ -6,7 +6,7 @@ on the DFT (characteristic function) of Monte-Carlo sample distributions,
 with deterministic snapshot/resume, content-addressed blockchain model
 versioning, and production inference serving.
 
-TPU-first design:
+JAX-first design:
 * one jitted program per train step (Sobol → GBM paths → FFT → CVNN fwd/bwd →
   Adam) with zero host transfers;
 * stateless threefry RNG keys replace the reference's stream pools and

@@ -2,7 +2,7 @@
 
 Capability parity with ``/root/reference/src/spectralmc/models/numerical.py:124-183``
 (``Precision`` enum with loss-free numpy/cupy maps and a float↔complex
-bijection), re-designed for JAX on TPU:
+bijection), re-designed for JAX:
 
 * maps go to ``jnp``/``np`` dtypes (no CuPy — one framework);
 * ``float64``/``complex128`` require ``jax_enable_x64``; requesting them
@@ -104,7 +104,7 @@ class ReducedPrecision(enum.Enum):
     """Storage/activation-only dtypes; never legal as an MC dtype.
 
     Mirrors the reference's ``ReducedPrecisionDType`` policy
-    (models/torch.py:102-162). ``bfloat16`` is the TPU-native reduced type.
+    (models/torch.py:102-162). ``bfloat16`` is the JAX-native reduced type.
     """
 
     bfloat16 = "bfloat16"

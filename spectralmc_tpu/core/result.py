@@ -6,7 +6,7 @@ variants, monadic ``map``/``and_then``, ``collect_results`` (first failure
 wins), ``partition_results`` and ``fold_results`` (early-exit fold — the
 training-loop driver in both frameworks).
 
-Design notes (TPU build): the Result layer is pure host-side Python and never
+Design notes (JAX build): the Result layer is pure host-side Python and never
 crosses a ``jax.jit`` boundary — jitted code returns plain pytrees and the
 host wraps outcomes.  This keeps tracing free of Python-level branching.
 """

@@ -8,7 +8,7 @@ typed ``SharedRegistry`` data plane, an async interpreter per family routed by
 hardware-free orchestration tests (the reference's most test-valuable idea,
 SURVEY §7 stage 10).
 
-TPU redesign: the unit of device execution is the **jitted fused step**, not
+JAX redesign: the unit of device execution is the **jitted fused step**, not
 8 interpreted micro-effects — so the MonteCarlo/Training effects describe
 calls into the jitted programs (``JitCall``/``TrainSegment``), while the
 reference's stream-sync and DLPack effects collapse (one framework, XLA async

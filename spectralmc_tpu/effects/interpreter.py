@@ -6,7 +6,7 @@ one class per family, all ``async interpret(effect) -> Result``, routed by
 over results) and parallel gathers; a ``create`` factory wires a shared
 registry. ``assert_never`` guards exhaustiveness.
 
-TPU notes: the MonteCarlo interpreter executes the *real* XLA simulation ops
+JAX notes: the MonteCarlo interpreter executes the *real* XLA simulation ops
 (as the reference's launches the real CUDA kernel, interpreter.py:645-654);
 Device effects wrap host<->device movement and jitted-program calls;
 GradientStep delegates to a registered fused update function (bwd+opt are one

@@ -160,7 +160,7 @@ class ComputeLoss:
 
 @dataclass(frozen=True, slots=True)
 class GradientStep:
-    """Fused backward + optimizer update (one traced program on TPU)."""
+    """Fused backward + optimizer update (one traced program)."""
 
     kind: Literal["gradient_step"] = "gradient_step"
     model_id: str = ""

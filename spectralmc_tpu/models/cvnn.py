@@ -5,10 +5,10 @@ Capability parity with the reference's torch CVNN catalogue
 modReLU, naive and covariance (Trabelsi-2018 whitening) complex batch norm,
 Sequential and Residual containers.
 
-TPU-first redesign:
+JAX-first redesign:
 
 * complex values are **split re/im pytrees of real arrays** — the four real
-  matmuls of ComplexLinear hit the MXU directly and optax-on-real-leaves
+  matmuls of ComplexLinear hit the matrix units directly and optax-on-real-leaves
   reproduces the reference's Wirtinger-correct Adam semantics exactly;
 * layers are (init, apply) pairs over immutable pytrees: ``apply`` threads a
   ``state`` pytree for batch-norm running statistics and returns the updated
@@ -82,7 +82,7 @@ class ComplexLinear:
         self, params: Params, state: State, re: jax.Array, im: jax.Array, train: bool
     ) -> tuple[jax.Array, jax.Array, State]:
         # (A + iB)(x + iy) = (Ax - By) + i(Bx + Ay); A/B stored column-major
-        # for x @ W. preferred_element_type pins MXU accumulation precision.
+        # for x @ W. preferred_element_type pins matmul accumulation precision.
         w_re, w_im = params["w_re"], params["w_im"]
         acc = jnp.promote_types(re.dtype, jnp.float32)
         out_re = jnp.dot(re, w_re, preferred_element_type=acc) - jnp.dot(

@@ -7,7 +7,7 @@ insertion on width mismatch), a frozen ``CVNNConfig`` that doubles as the
 checkpoint's architecture record, deterministic seeded construction, and
 state-dict round-tripping.
 
-TPU-first: ``build_model`` compiles the config to a pure ``(init, apply)``
+JAX-first: ``build_model`` compiles the config to a pure ``(init, apply)``
 pair over split re/im pytrees; init uses threefry keys derived from
 ``cfg.seed`` so construction is bit-deterministic on every backend (the
 reference needed CPU-init-under-forked-RNG to get this, cvnn_factory.py:343-367).

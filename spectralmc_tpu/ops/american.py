@@ -50,8 +50,8 @@ def _ridge_chol_solve(
     the previous LU path.
 
     RANK-REVEALING COLUMN DROP (round-5 robustness find, surfaced by
-    tests/test_lsmc_pallas.py's declining-path oracle and reproduced on the
-    shared XLA backward — both backends failed identically). On an EXACTLY
+    a declining-path oracle of a fused backward since removed, and
+    reproduced on the shared XLA backward — both failed identically). On an EXACTLY
     singular Gram — all ITM paths identical, the zero-variance collapse —
     the Schur-complement pivots beyond the first column are pure ridge:
     eliminating the rank-1 part leaves ``d_j ≈ 2·eps·a_jj`` exactly, and
@@ -141,9 +141,9 @@ def _lsmc_backward(
     OPPOSITE half's surface, so its cashflows are fully out-of-sample
     (LOW-biased by the policy suboptimality of a half-sample fit). The two
     biases are the two legs of the classic LSMC bracket; their midpoint
-    cancels most of both. Measured on v5e at the 8,192-path quality budget
-    (benchmarks/american_quality_lab.py, 64 contracts × 16 reps): in-sample
-    +0.34%, pure out-of-sample −0.65%, midpoint ≈ −0.16% — pure 2-fold
+    cancels most of both. At the 8,192-path quality budget
+    (benchmarks/american_quality_lab.py, 64 contracts × 16 reps) the
+    midpoint sat between the in-sample and out-of-sample legs — pure 2-fold
     cross-fit was tried first and REJECTED: half-sample policy
     suboptimality is first-order in regression noise too, and at this
     budget it exceeds the look-ahead bias it removes. Cost over the classic
@@ -1090,10 +1090,7 @@ def lsmc_cashflows(
     beats the estimate. Cashflows are discounted to t = 0. Default basis
     degree 5: measured at 1M paths x 16 dates vs the Bermudan tree, degree 3
     prices ~1.0% low (policy bias) and degree 5 ~0.1% low (degree 7 adds
-    nothing); measured 1.1e10 path-steps/s (XLA engine) / 1.8e10 (Pallas
-    monitor-row forward) at 1M paths x 16 dates on a v5e chip with the
-    fused-moment backward at reps-sized timing (bench.py
-    american_lsmc_path_steps_per_sec, BENCH_r04 — ~0.9-1.5 ms per pricing).
+    nothing). Throughput: bench.py american_lsmc_path_steps_per_sec.
     """
     from spectralmc_tpu.ops.gbm import simulate_paths
 

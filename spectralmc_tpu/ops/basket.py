@@ -8,8 +8,8 @@ exact closed form under log-Euler — ``ops/analytic.py::geometric_basket_price`
 — making it the sharp oracle, the same role the geometric Asian plays for the
 path-dependent axis).
 
-TPU-first: the per-step asset mixing is one ``[A, A] @ [A, rows·cols]``
-contraction — einsum on the MXU — and the asset axis stays leading so each
+JAX-first: the per-step asset mixing is one ``[A, A] @ [A, rows·cols]``
+contraction — einsum — and the asset axis stays leading so each
 asset's state block is a contiguous VPU-shaped ``[rows, cols]`` tile.
 
 Determinism: the same key discipline as GBM/Heston — normals addressed by
@@ -181,7 +181,7 @@ def basket_euler_step(
     (shared by the European simulator and the American LSMC forward so a
     discretization change cannot silently desync their bit streams).
     ``z`` is the pre-mix ``[A, rows, cols]`` Gaussian; the Cholesky mix is
-    one MXU contraction."""
+    one matrix contraction."""
     mixed = jnp.einsum("ab,brc->arc", chol, z)
     return logx + drift[:, None, None] + sig_sqdt[:, None, None] * mixed
 
@@ -221,7 +221,7 @@ def simulate_basket_underlier_rows(
     ``a`` starts at ``spot·spot_multipliers[a]`` with vol
     ``vol·vol_multipliers[a]``; normals keyed by
     (contract_key, global row, timestep, asset) then Cholesky-mixed along the
-    asset axis (one MXU contraction per step). With
+    asset axis (one matrix contraction per step). With
     ``sampling=SamplingKind.SOBOL_BB`` the pre-mix normals come from the
     n_assets-factor Brownian-bridge Sobol net (ops/qmc.py).
     """

@@ -123,14 +123,6 @@ def make_underlier_simulator(
                 simulate_american_underlier_rows_pallas as _sim_american,
             )
 
-            if sim.lsmc_fused_backward:
-                # the GBM Pallas wrapper re-resolves support internally
-                # (VMEM kernel where the carrier fits, streamed past the
-                # cap) and falls back to the shared XLA backward when the
-                # shape/mesh rejects both; the trainer records the
-                # EFFECTIVE backward via gbm_pallas.resolve_lsmc_backward
-                # (the same predicates)
-                american_kwargs["fused_backward"] = True
         else:
             from spectralmc_tpu.ops.american import (
                 simulate_american_underlier_rows as _sim_american,
@@ -168,8 +160,8 @@ def make_underlier_simulator(
         return simulate_american
 
     # QMC sampling always routes to the XLA simulators (the bridge matmul is
-    # MXU-shaped work), non-GBM cliquets take the XLA scan, and unsupported
-    # dtypes/shapes/backends fall back — all encoded by `resolved` above.
+    # matmul-shaped work), non-GBM cliquets take the XLA scan, and unsupported
+    # dtypes/shapes/backends take XLA — all encoded by `resolved` above.
     use_pallas = resolved == SimImplementation.PALLAS
     sampling_kwargs: dict[str, object] = {}
     if sim.sampling != SamplingKind.PSEUDO:

@@ -1,4 +1,4 @@
-"""GBM Monte-Carlo engine — the compute core, TPU-native.
+"""GBM Monte-Carlo engine — the compute core, JAX-native.
 
 Capability parity with the reference's Numba-CUDA engine
 (``/root/reference/src/spectralmc/gbm.py:77-530``): ``SimulationParams`` with
@@ -7,7 +7,7 @@ log-Euler / Euler-with-reflection schemes, optional forward normalization,
 discounted put/call payoff vectors + host prices, and a deterministic
 ``snapshot()`` capturing the RNG skip for bit-exact resume.
 
-TPU-first redesign (vs the reference's 1-CUDA-thread-per-path kernel that
+JAX-first redesign (vs the reference's 1-CUDA-thread-per-path kernel that
 materializes the full ``[timesteps, paths]`` normals matrix in HBM):
 
 * **No normals matrix.** ``lax.scan`` walks timesteps carrying only the
@@ -505,7 +505,7 @@ class SimulationParams(BaseModel):
     ``total_paths = network_size * batches_per_mc_run``; the FFT length is
     ``network_size``. ``skip`` is the number of contract-simulations already
     drawn from the key stream (the checkpointed resume offset).
-    ``threads_per_block`` has no TPU counterpart — tiling is the compiler's
+    ``threads_per_block`` has no counterpart — tiling is the compiler's
     job (Pallas block shapes are chosen in gbm_pallas.py).
     """
 
@@ -548,15 +548,10 @@ class SimulationParams(BaseModel):
     # keeps every existing stream bit-identical. Checkpointed: it changes
     # the exercise policy, hence the target distribution.
     lsmc_cross_fit: bool = False
-    # fused Pallas LSMC backward (ops/lsmc_pallas.py): the same estimator
-    # definition at a different float reduction order — the VMEM-resident
-    # cashflow carrier cuts the backward's HBM traffic ~3x. GBM + PALLAS +
-    # classic single-recursion estimator only (the module docstring's scope);
-    # unsupported shapes/backends fall back to the shared XLA backward and
-    # the trainer records the EFFECTIVE backward version
-    # (GbmCVNNPricerConfig.lsmc_backward_version). Default False keeps every
-    # existing policy bit-identical. Checkpointed: which backward ran decides
-    # near-boundary exercise bits, hence the target distribution's stream.
+    # The fused Pallas LSMC backward this flag selected was removed; the
+    # field stays so checkpoints that carry it still decode, and
+    # build_simulation_params refuses True (the trainer's recorded
+    # lsmc_backward_version turns a mid-stream resume into EngineMismatch).
     lsmc_fused_backward: bool = False
     # strike-setting grid index for the FORWARD_START payoff (the strike
     # fixes at t_m = forward_start_step·dt; 1 ≤ m < timesteps). Required iff
@@ -589,6 +584,16 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
         params = SimulationParams(**kwargs)
     except Exception as exc:  # pydantic ValidationError
         return Failure(InvalidSimulationParams(field="<model>", value=kwargs, reason=str(exc)))
+    if params.lsmc_fused_backward:
+        return Failure(
+            InvalidSimulationParams(
+                field="lsmc_fused_backward",
+                value=True,
+                reason="the fused Pallas LSMC backward was removed; every "
+                "American payoff runs the shared XLA backward "
+                "(ops/american.py) — leave lsmc_fused_backward unset",
+            )
+        )
     for field in ("timesteps", "network_size", "batches_per_mc_run"):
         if getattr(params, field) <= 0:
             return Failure(
@@ -822,39 +827,6 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
                     "network_size must be >= 2",
                 )
             )
-        if params.lsmc_fused_backward:
-            if params.lsmc_cross_fit:
-                return Failure(
-                    InvalidSimulationParams(
-                        field="lsmc_fused_backward",
-                        value=True,
-                        reason="the fused backward implements the classic "
-                        "single-recursion estimator; the cross-fitted pair "
-                        "carries two cashflow vectors past its VMEM budget "
-                        "(ops/lsmc_pallas.py scope) — choose one",
-                    )
-                )
-            if params.model != ModelKind.GBM:
-                return Failure(
-                    InvalidSimulationParams(
-                        field="lsmc_fused_backward",
-                        value=params.model.value,
-                        reason="the fused backward is single-state "
-                        "moneyness-basis LSMC — GBM dynamics only "
-                        "(Heston/basket augment the basis; Merton is "
-                        "future scope)",
-                    )
-                )
-            if params.term is not None and not params.term.is_flat():
-                return Failure(
-                    InvalidSimulationParams(
-                        field="lsmc_fused_backward",
-                        value=True,
-                        reason="curved term structures need per-segment "
-                        "discounts; the fused backward is flat-discount "
-                        "only (ops/lsmc_pallas.py scope)",
-                    )
-                )
     elif params.lsmc_cross_fit:
         return Failure(
             InvalidSimulationParams(
@@ -862,15 +834,6 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
                 value=True,
                 reason=f"payoff={params.payoff.value!r} has no LSMC "
                 "regression to cross-fit",
-            )
-        )
-    elif params.lsmc_fused_backward:
-        return Failure(
-            InvalidSimulationParams(
-                field="lsmc_fused_backward",
-                value=True,
-                reason=f"payoff={params.payoff.value!r} has no LSMC "
-                "backward induction",
             )
         )
     if params.term is not None:
@@ -1055,10 +1018,10 @@ def has_closed_form_mean(
 def resolve_implementation(params: SimulationParams, *, rows: int | None = None) -> SimImplementation:
     """The engine that will ACTUALLY execute for these params on this backend.
 
-    The Pallas kernels fall back to the XLA path when the dtype/shape/backend
-    is unsupported — but the two engines draw from different bit streams
-    (hardware PRNG vs threefry), so which one ran is checkpoint-relevant
-    state. Callers that record or resume determinism state must resolve the
+    The Pallas kernels cannot run every dtype/shape/backend (their wrappers
+    refuse), and the two engines draw from different bit streams (the
+    kernels' in-kernel threefry layout vs the XLA fold_in stream), so which
+    one ran is checkpoint-relevant state. Callers that record or resume determinism state must resolve the
     requested implementation through this function (single source of truth:
     ``gbm_pallas.pallas_supported``). ``rows`` is the per-shard row count
     when the MC batch is sharded over a mesh paths axis.
@@ -1072,30 +1035,21 @@ def resolve_implementation(params: SimulationParams, *, rows: int | None = None)
             return SimImplementation.XLA
         # The Pallas engine for LSMC is a monitor-row kernel per dynamics
         # (fused forward emitting the exercise-date state) + the XLA
-        # backward induction over the emitted rows (the fused-moment
-        # estimator — see docs/performance.md for the measured
-        # forward/backward split). Heston and arithmetic
-        # baskets emit a second state row-set (variance / dispersion) for
-        # the augmented regression basis, which halves the VMEM-fitting
-        # monitor budget (n_state=2).
+        # backward induction over the emitted rows.
         from spectralmc_tpu.ops.gbm_pallas import pallas_american_supported
 
-        # baskets allocate both out blocks regardless of combine (the
-        # geometric kernel writes zero dispersion rows), so they budget as 2
-        n_state = 2 if params.model in (ModelKind.HESTON, ModelKind.BASKET_GBM) else 1
         if pallas_american_supported(
             dtype=params.precision.to_jnp(),
             rows=params.batches_per_mc_run if rows is None else rows,
             cols=params.network_size,
             timesteps=params.timesteps,
             exercise_every=params.lsmc_exercise_every,
-            n_state=n_state,
         ):
             return SimImplementation.PALLAS
         return SimImplementation.XLA
     if params.sampling == SamplingKind.SOBOL_BB:
         # the Brownian-bridge contraction is a [T, T] x [T, paths] matmul —
-        # MXU-shaped work the XLA engine expresses directly; the Pallas
+        # matmul-shaped work the XLA engine expresses directly; the Pallas
         # kernels' in-register streaming RNG has no Sobol counterpart
         return SimImplementation.XLA
     if params.payoff == PayoffKind.CLIQUET:
@@ -1122,8 +1076,8 @@ def resolve_implementation(params: SimulationParams, *, rows: int | None = None)
             return SimImplementation.PALLAS
         return SimImplementation.XLA
     if params.term is not None and not params.term.is_flat():
-        # genuinely curved markets run the term kernel (per-step SMEM
-        # coefficients, stream key "gbm_term") at supported shapes;
+        # genuinely curved markets run the term kernel (per-step
+        # coefficient table, stream key "gbm_term") at supported shapes;
         # the reflection-Euler compatibility scheme stays on XLA, and the
         # non-GBM family kernels take no coefficient tables — curved
         # Heston/Merton/basket sims run their XLA scans (round 4). An
@@ -1503,42 +1457,6 @@ def simulate_underlier_rows(
         dt=dt,
         sqrt_dt=sqrt_dt,
     )
-    if (
-        payoff == PayoffKind.ASIAN_GEOMETRIC
-        and sampling == SamplingKind.SOBOL_BB
-        and scheme == PathScheme.LOG_EULER
-        and term is None
-    ):
-        # Fused QMC-fed walk (ops/qmc_pallas.py): generation + log-Euler
-        # walk in one kernel, never materializing the [T, rows, cols]
-        # effective-normal tensor. BIT-IDENTICAL to the scan below over
-        # qmc_effective_normals (same tables/shift stream, same bridged
-        # normals, same walk expression trees; gated on-chip by
-        # tests/test_qmc_pallas.py) — an internal routing detail of the
-        # SOBOL_BB generator, not an engine, exactly like the generation
-        # fusion. Unsupported shapes/backends take the scan path below.
-        from spectralmc_tpu.ops.qmc_pallas import (
-            qmc_asian_geo_underliers,
-            qmc_walk_supported,
-        )
-
-        if qmc_walk_supported(
-            timesteps=timesteps, count=rows * cols, dtype=dtype
-        ):
-            assert antithetic_half is None  # enforced by build_simulation_params
-            return qmc_asian_geo_underliers(
-                contract_key,
-                timesteps=timesteps,
-                rows=rows,
-                cols=cols,
-                dtype=dtype,
-                mc_seed=mc_seed,
-                row_offset=row_offset,
-                log_spot=jnp.log(spot),
-                drift=log_drift(0),
-                vol_sdt=vol_step(0),
-            )
-
     normals = _normals_source(
         contract_key,
         timesteps=timesteps,

@@ -31,7 +31,7 @@ Three estimator families:
 Engine selection (``greeks_engine``): for (GBM, TERMINAL, log-Euler) a
 PALLAS-configured sim keeps the fused hardware kernel — its backward pass is
 the ANALYTIC pathwise rule computed from the kernel's own forward samples
-(``gbm_pallas.terminal_pathwise_vjp``; no Mosaic backward, no second bit
+(``gbm_pallas.terminal_pathwise_vjp``; no kernel backward, no second bit
 stream), so Greeks run at kernel speed. Every other combination runs the
 autodiff-transparent XLA (`lax.scan`) engine. The returned
 ``MCGreeks.engine`` records which one ran.

@@ -7,14 +7,14 @@ path increments themselves come from a scrambled Sobol net, which upgrades the
 MC error rate from O(N^-1/2) toward O(N^-1) on smooth payoffs — a large
 accuracy-per-FLOP win measured in ``tests/test_qmc.py`` and BENCH extras.
 
-TPU-native design:
+JAX-native design:
 
 * **Brownian bridge as one matmul.** The bridge construction (Glasserman,
   "MC Methods in Financial Engineering" §3.1) is a LINEAR map from the
   quasi-random normal vector z (variance-ordered: z_0 drives the terminal
   value, later z's fill in ever-finer midpoints) to the path's Brownian
   increments. We precompute that ``[timesteps, timesteps]`` matrix ``M`` once
-  on host (float64) and apply it on device as a single einsum — MXU work —
+  on host (float64) and apply it on device as a single einsum — matmul work —
   instead of the scalar bisection loop a CPU/GPU implementation would run.
   Because unit-time-step Brownian increments are iid N(0,1), ``M`` is exactly
   orthogonal (``M Mᵀ = I``), which the tests assert to 1e-10: the map is a
@@ -155,37 +155,9 @@ def qmc_effective_normals_multi(
     count = rows * cols
     start = jnp.asarray(row_offset, jnp.uint32) * jnp.uint32(cols)
 
-    from spectralmc_tpu.ops.qmc_pallas import (
-        _fused_effective_normals,
-        qmc_fused_supported,
-    )
-
-    if qmc_fused_supported(
-        timesteps=timesteps, factors=factors, count=count, dtype=dtype
-    ):
-        # BIT-IDENTICAL fused generation (sobol bits -> erf_inv -> bridge in
-        # one Pallas kernel, ops/qmc_pallas.py): same GF(2) split-table
-        # algebra, same float ops, same HIGHEST-precision MXU contraction —
-        # gated by tests/test_qmc_pallas.py, so the SOBOL_BB stream a
-        # checkpoint recorded is unchanged. Removes the [dims, count]
-        # normal-matrix HBM round-trip the matmul below pays.
-        bb32 = jnp.asarray(brownian_bridge_matrix(timesteps), dtype=jnp.float32)
-        out = _fused_effective_normals(
-            directions,
-            host_shift ^ draw_shift,
-            bb32,
-            start,
-            timesteps=timesteps,
-            factors=factors,
-            count=count,
-        )
-        return out.reshape(timesteps, factors, rows, cols)
     # Dimension-major generation: [sdims, count] keeps the huge point axis
-    # minor, so the whole uint32 -> uniform -> ndtri elementwise pipeline
-    # runs on full (8, 128) vregs — the round-3 [count, 64] orientation left
-    # every lane half-empty AND needed a [d, rows, cols] transpose (a
-    # ~0.5 GB HBM shuffle at the 2M-path bench shape) before the bridge
-    # einsum. Measured on v5e in docs/performance.md's QMC section.
+    # minor for the uint32 -> uniform -> inverse-CDF elementwise pipeline,
+    # and the bridge contraction below needs no [d, rows, cols] transpose.
     bits = sobol_uint32_t(directions, host_shift ^ draw_shift, start, count)
     z_sobol = _inv_cdf(bits).astype(dtype)  # [sdims, count]
 
@@ -208,7 +180,7 @@ def qmc_effective_normals_multi(
         z_all = z_sobol
 
     # de-interleave flat (level·F + factor) -> [levels, factors, count] and
-    # contract the bridge as one plain matmul over the level axis — MXU work
+    # contract the bridge as one plain matmul over the level axis — matmul work
     # with no input transpose in either orientation.
     z_lvl = z_all.reshape(timesteps, factors, count)
     bb = jnp.asarray(brownian_bridge_matrix(timesteps), dtype=dtype)
@@ -225,13 +197,11 @@ def _inv_cdf(bits: jax.Array) -> jax.Array:
     """uint32 Sobol fractions -> standard normals via the inverse CDF.
 
     Centered uniforms in (0, 1): top 24 bits + half-ulp. The inverse is
-    ``sqrt(2)*erf_inv(2u-1)``: XLA's f32 ``erf_inv`` is a short polynomial
-    that measured 2.2x faster than ``ndtri``'s double-branch rational on v5e
-    (the binding op of the whole QMC sampling path, benchmarks/qmc_lab.py),
-    and agrees with it to 7e-5 absolute in z — orders below f32 MC noise at
+    ``sqrt(2)*erf_inv(2u-1)``: XLA's f32 ``erf_inv`` is a short polynomial,
+    cheaper than ``ndtri``'s double-branch rational, and agrees with it to 7e-5 absolute in z — orders below f32 MC noise at
     any real path budget.
 
-    TOP-BUCKET GUARD (round-4 bug find, caught by the fused-kernel
+    TOP-BUCKET GUARD (round-4 bug find, caught by a fused-kernel
     bit-identity probe at the 134M-draw bench shape): for the maximal bucket
     ``top24 = 2^24-1`` the sum ``top24 + 0.5`` needs 25 mantissa bits and
     rounds UP to ``2^24`` in f32, making ``u`` exactly 1 and the inverse

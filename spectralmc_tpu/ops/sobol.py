@@ -6,7 +6,7 @@ points with deterministic seeding, ``fast_forward``-style resume via a skip
 counter, bound scaling over the fields of a pydantic model, and exact
 field-set validation of the domain bounds.
 
-TPU-first redesign: instead of calling a host CPU library per batch, direction
+JAX-first redesign: instead of calling a host CPU library per batch, direction
 numbers are precomputed once (host, numpy, from the public Joe-Kuo
 "new-joe-kuo-6" seed data embedded in ``_sobol_directions.py``) and points are
 generated **on device** with pure ``uint32`` bit arithmetic — XOR-folding
@@ -143,7 +143,7 @@ def sobol_uint32(
 
     ``directions`` is ``[d, BITS]`` uint32, ``shift`` ``[d]`` uint32, ``start``
     may be traced. Point ``n`` = XOR of direction numbers selected by the bits
-    of gray(n), XOR the digital shift — pure VPU integer work on TPU,
+    of gray(n), XOR the digital shift — pure vector integer work,
     assembled from the split tables (``_SPLIT_LOG2`` note above) so the
     per-point cost is ONE broadcast XOR. Bit-identical to the direct
     selector reduce for every (start, count): the split is exact GF(2)
@@ -198,11 +198,10 @@ def sobol_uint32_t(
     ``sobol_uint32(...)`` point for point, generated directly in the
     dimension-major orientation.
 
-    TPU layout rationale: vregs are (8, 128) over (sublane, lane) of the two
-    minor axes. In the ``[count, d]`` orientation the minor axis is the
-    dimension count (64 at the QMC cap) — every elementwise op downstream
-    (the uint32→float map, ``ndtri``) runs on half-empty lanes. Putting the
-    POINT axis minor fills the registers, and the Brownian-bridge contraction
+    Layout rationale: in the ``[count, d]`` orientation the minor axis is
+    the dimension count (64 at the QMC cap), so every elementwise op
+    downstream (the uint32→float map, ``ndtri``) walks short rows. Putting
+    the POINT axis minor keeps accesses contiguous, and the Brownian-bridge contraction
     becomes a plain ``[T, d] @ [d, count]`` matmul with no input transpose
     (ops/qmc.py). Both orientations share the split-table algebra above.
     """

@@ -6,7 +6,7 @@ the discounted put-payoff vector is reshaped to
 ``[batches_per_mc_run, network_size]``, FFT'd along the network axis, and
 batch-averaged — producing the complex spectrum the CVNN regresses.
 
-On TPU this is ``jnp.fft.fft`` (XLA FFT); it fuses into the jitted train step,
+This is ``jnp.fft.fft`` (XLA FFT); it fuses into the jitted train step,
 so the reference's DLPack CuPy→Torch hop (gbm_trainer.py:1556) has no
 counterpart. ``mean_spectrum_psum`` is the sharded variant: each device FFTs
 its local batch rows and the batch-mean is a single ``psum`` over the mesh's

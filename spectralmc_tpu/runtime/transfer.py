@@ -5,7 +5,7 @@ Parity: ``/root/reference/src/spectralmc/models/cpu_gpu_transfer.py:62-526``
 cap, and recursive moves over lists/tuples/mappings, plus the
 device/dtype-uniqueness inspectors used to validate state dicts.
 
-TPU simplifications: XLA manages pinned staging internally, so the
+JAX simplifications: XLA manages pinned staging internally, so the
 reference's ``StageThenCopy``-through-pinned-memory decision collapses into
 ``DirectTransfer`` (``jax.device_put`` is already asynchronous and staged);
 streams don't exist (single async domain).

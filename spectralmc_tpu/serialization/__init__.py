@@ -6,7 +6,7 @@ ModelCheckpointConverter, enum/config converters, compute_sha256) — including
 the **complete recursive LayerCfg oneof** the reference left unfinished
 (serialization/models.py:150 "simplified for now").
 
-TPU redesign: model and optimizer states are flat path→tensor maps (pytrees
+JAX redesign: model and optimizer states are flat path→tensor maps (pytrees
 flatten losslessly, trainer.flatten_pytree), so the reference's bespoke Adam
 proto tree disappears; RNG byte blobs become the integer counters already in
 ``SimulationParamsProto``/``sobol_skip``.

@@ -5,7 +5,7 @@ LoC): chain primitives, the atomic CAS commit protocol, retry engine, chain
 verification, garbage collection, pinned/tracking inference client, audit
 log, and the CLI (``python -m spectralmc_tpu.storage``).
 
-TPU-build design notes: the store is host-side and backend-agnostic — an
+JAX-build design notes: the store is host-side and backend-agnostic — an
 async ``ObjectStore`` protocol with a hermetic filesystem implementation
 (ETag = content SHA-256, compare-and-swap under a lock) and an S3
 implementation gated on aioboto3 (absent in this image; the protocol seam is

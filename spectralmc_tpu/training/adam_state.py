@@ -5,7 +5,7 @@ messages (``/root/reference/src/spectralmc/models/torch.py:348-735`` —
 ``AdamParamState{exp_avg, exp_avg_sq, step}`` keyed by parameter). Round 1
 serialized the raw optax state tree by positional path strings
 ("opt/0/.mu/..."), which silently breaks if optax reorders its state tuple
-across versions. This module restores the reference's discipline, TPU-style:
+across versions. This module restores the reference's discipline, JAX-style:
 
 * ``AdamStateSnapshot`` names the moments — ``mu``/``nu`` tensor maps keyed
   by the SAME parameter paths as ``model_state`` entries, plus the shared

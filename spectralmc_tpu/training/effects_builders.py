@@ -2,7 +2,7 @@
 
 Parity: ``BlackScholes.build_simulation_effects`` (reference gbm.py:342-397)
 and the trainer's ``build_training_step_effects`` / epoch / full-run builders
-(gbm_trainer.py:906-1118, the 8-phase step description). The TPU step has
+(gbm_trainer.py:906-1118, the 8-phase step description). The JAX step has
 fewer phases because the device work is one fused program: sample+simulate+
 FFT+update collapse into ``TrainSegment``; the stream-sync/DLPack phases have
 no counterpart. Orchestration tests assert these structures with

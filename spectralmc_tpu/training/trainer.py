@@ -1,4 +1,4 @@
-"""GbmCVNNPricer — the training orchestrator, TPU-native.
+"""GbmCVNNPricer — the training orchestrator, JAX-native.
 
 Capability parity with the reference's largest module
 (``/root/reference/src/spectralmc/gbm_trainer.py``, 1,783 LoC): a
@@ -8,7 +8,7 @@ Capability parity with the reference's largest module
 (:600-1767), MSE(re)+MSE(im) spectral loss (:827-835), inf-norm grad metric,
 and interval/final blockchain commits.
 
-TPU-first redesign — the whole per-batch pipeline is ONE jitted function:
+JAX-first redesign — the whole per-batch pipeline is ONE jitted function:
 
 * The reference walks contracts in a host Python loop, one CUDA kernel +
   cuFFT + DLPack hop per contract, syncing ``.item()`` every batch
@@ -252,13 +252,10 @@ class GbmCVNNPricerConfig:
     pallas_stream_version: int = 0
     # Which LSMC backward produced the American training targets: 0 = the
     # shared XLA backward (every pre-round-5 checkpoint), else a key from
-    # ops/lsmc_pallas.py LSMC_BACKWARD_VERSIONS ("fused" = VMEM-resident,
-    # "fused_streamed" = the HBM-carrier kernel past the VMEM cap).
-    # Orthogonal to pallas_stream_version (the FORWARD bits): the backwards
-    # are the same estimator at different float reduction orders, so
-    # near-boundary exercise bits differ — which one ran is stream state.
-    # Recorded from gbm_pallas.resolve_lsmc_backward (the effective
-    # backward, never the requested one).
+    # Which LSMC backward a checkpoint was trained on: 0 = the shared XLA
+    # backward, the only one this build has. 1 and 2 named fused Pallas
+    # backwards that were removed; they still decode, and a mid-stream
+    # resume of one fails with EngineMismatch (its exercise bits differ).
     lsmc_backward_version: int = 0
     model_state: Mapping[str, np.ndarray] | None = None
     # Typed named-moment Adam state (training/adam_state.py). Legacy round-1
@@ -478,6 +475,11 @@ class GbmCVNNPricer:
         # mid-stream checkpoint (any counter advanced) must not silently
         # switch bit streams (reference restorability ethos,
         # gbm_trainer.py:633-643) — fail loudly unless the caller opts in.
+        # The runtime numerics policy (float32 matmuls at ``highest``, no
+        # TF32) is applied once per process before anything is traced.
+        from spectralmc_tpu.runtime.jax_runtime import get_jax_handle
+
+        get_jax_handle()
         shard_rows = None
         if mesh_spec is not None and hasattr(mesh_spec, "paths_divisor"):
             if config.sim.batches_per_mc_run % mesh_spec.paths_divisor == 0:
@@ -542,36 +544,25 @@ class GbmCVNNPricer:
                         "allow_engine_fallback=True to accept the stream break",
                     )
                 )
-        # The LSMC backward is stream state too (ops/lsmc_pallas.py): record
-        # the backward that will ACTUALLY run here — the fused kernel when
-        # the sim requests it AND the engine/shape/mesh accept it, else the
-        # shared XLA backward (version 0). A mid-stream checkpoint whose
-        # recorded backward differs fails loudly, exactly like a forward
-        # stream change.
+        # The LSMC backward is stream state too: only the shared XLA
+        # backward (version 0) exists, so a mid-stream checkpoint that
+        # recorded a removed fused backward fails loudly, exactly like a
+        # forward stream change.
         backward_version = 0
-        if config.sim.lsmc_fused_backward:
-            from spectralmc_tpu.ops.gbm_pallas import resolve_lsmc_backward
-
-            backward_version = resolve_lsmc_backward(
-                config.sim,
-                rows=shard_rows or config.sim.batches_per_mc_run,
-                sharded=mesh_spec is not None,
-            )
-            if (
-                mid_stream
-                and config.lsmc_backward_version != backward_version
-                and not allow_engine_fallback
-            ):
-                return Failure(
-                    EngineMismatch(
-                        requested=f"lsmc backward v{config.lsmc_backward_version}",
-                        effective=f"lsmc backward v{backward_version}",
-                        reason="the LSMC backward this checkpoint was trained "
-                        "on cannot continue on this backend/shape/mesh — its "
-                        "exercise-policy bit stream would change; pass "
-                        "allow_engine_fallback=True to accept the stream break",
-                    )
+        if (
+            mid_stream
+            and config.lsmc_backward_version != backward_version
+            and not allow_engine_fallback
+        ):
+            return Failure(
+                EngineMismatch(
+                    requested=f"lsmc backward v{config.lsmc_backward_version}",
+                    effective=f"lsmc backward v{backward_version}",
+                    reason="the LSMC backward this checkpoint was trained on "
+                    "was removed — its exercise-policy bit stream would change; "
+                    "pass allow_engine_fallback=True to accept the stream break",
                 )
+            )
         if (
             config.pallas_stream_version != stream_version
             or config.lsmc_backward_version != backward_version
@@ -1091,7 +1082,7 @@ class GbmCVNNPricer:
 
         One compiled program per contract-count shape: CVNN forward → complex
         spectrum → IFFT → price + parity expectation. Must be jitted — eager
-        complex arithmetic is unimplemented on some TPU runtimes, and jit is
+        complex arithmetic is unimplemented on some backends, and jit is
         how inference should dispatch anyway.
 
         Returns ONE packed f32 vector ``[put(m) | expected(m) | residue]``

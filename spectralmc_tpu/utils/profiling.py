@@ -1,6 +1,6 @@
-"""Profiling hooks — the idiomatic TPU counterpart of the reference's
+"""Profiling hooks — the idiomatic JAX counterpart of the reference's
 lightweight latency counters (SURVEY §5 "Tracing/profiling": the reference
-only tracks normals-pool sync/idle times; on TPU the right tool is a
+only tracks normals-pool sync/idle times; in JAX the right tool is a
 ``jax.profiler`` trace viewed in TensorBoard/Perfetto).
 """
 

@@ -2,7 +2,7 @@
 
 FP tolerances match the reference exactly (constants.py:40-70); workload
 shapes are scaled for the 8-virtual-device CPU backend — the full-size shapes
-run on real TPU via bench.py.
+run on the GPU via chip_smoke.py and bench.py.
 """
 
 RTOL_F32 = 1e-5

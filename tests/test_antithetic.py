@@ -178,17 +178,17 @@ def test_heston_and_basket_mirror_identity() -> None:
 
 
 def test_pallas_in_block_mirror_interpret_mode() -> None:
-    """Interpret mode (zero-stub PRNG): the mirrored bottom half negates the
-    deterministic z, so bottom-half log equals 2(lnS0 + drift·n) − top-half
-    log — checkable in closed form like the other interpret tests."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """Interpret mode (zero-bit stream): antithetic partners are the global
+    row pairs (2k, 2k+1), so odd rows negate the deterministic z and their
+    log equals 2(lnS0 + drift·n) − the even partner's log — checkable in
+    closed form like the other interpret tests."""
     from spectralmc_tpu.ops.gbm_pallas import simulate_terminal_rows_pallas
+    from tests.helpers.kernels import zero_bits
 
     c = make_contract()
     arr = c.as_array(jnp.float32)
     n = 4
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         t = simulate_terminal_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=n, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -198,7 +198,7 @@ def test_pallas_in_block_mirror_interpret_mode() -> None:
     dt = c.maturity / n
     drift = (c.rate - c.div_yield - 0.5 * c.vol**2) * dt
     np.testing.assert_allclose(
-        log_t[:4] + log_t[4:], 2.0 * (np.log(c.spot) + n * drift), rtol=2e-5
+        log_t[0::2] + log_t[1::2], 2.0 * (np.log(c.spot) + n * drift), rtol=2e-5
     )
 
 

@@ -145,13 +145,13 @@ def test_training_on_asian_payoff_converges_direction() -> None:
 
 def test_pallas_asian_interpret_structure() -> None:
     """Zero-bit interpreter RNG -> deterministic skeleton for the Asian kernel."""
-    from jax.experimental.pallas import tpu as pltpu
+    from tests.helpers.kernels import zero_bits
 
     from spectralmc_tpu.ops.gbm_pallas import simulate_underlier_rows_pallas
 
     key = jax.random.PRNGKey(1)
     arr = CONTRACT.as_array(jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         out = simulate_underlier_rows_pallas(
             key, arr, timesteps=4, rows=8, cols=128, dtype=jnp.float32,
             scheme=PathScheme.LOG_EULER, payoff=PayoffKind.ASIAN_GEOMETRIC,

@@ -195,7 +195,7 @@ def test_row_offset_shard_stability_barrier() -> None:
 
 
 def test_pallas_barrier_structure_interpret_mode() -> None:
-    """Interpret mode stubs the hardware PRNG to zeros, making the kernel a
+    """The zero-bit stream makes the kernel a
     deterministic drift walk (the discipline of test_gbm_pallas.py): each
     single step adds drift + vol·sqrt(dt)·r with r = sqrt(-2 ln 2^-25)
     (u2 = 0 => sin(2*pi*(0+1/4)) = 1). We pin the far-barrier walk to that
@@ -203,7 +203,7 @@ def test_pallas_barrier_structure_interpret_mode() -> None:
     and a tight up-barrier knocks every path to strike. (Far-barrier is NOT
     bit-equal to the TERMINAL kernel here by design — TERMINAL uses the
     pair-step draw pattern, a different stream.)"""
-    from jax.experimental.pallas import tpu as pltpu
+    from tests.helpers.kernels import zero_bits
 
     from spectralmc_tpu.ops.gbm_pallas import simulate_underlier_rows_pallas
 
@@ -212,7 +212,7 @@ def test_pallas_barrier_structure_interpret_mode() -> None:
     key = jax.random.PRNGKey(9)
     n = 4
     kwargs = dict(timesteps=n, rows=8, cols=128, dtype=jnp.float32, interpret=True)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         far = simulate_underlier_rows_pallas(
             key, arr, scheme=PathScheme.LOG_EULER,
             payoff=PayoffKind.BARRIER_UP_OUT, barrier_rel=1e6, **kwargs

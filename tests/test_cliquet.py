@@ -101,8 +101,8 @@ def test_cliquet_config_validation() -> None:
                                 normalization=ForwardNormalization.NONE)
     )
     assert ok.cliquet_reset_every == 3 and ok.cliquet_floor == 0.0
-    # GBM flat log-Euler cliquets resolve to the per-period kernel where the
-    # hardware supports it; the CPU backend (this suite) resolves to XLA
+    # GBM flat log-Euler cliquets resolve to the per-period kernel on the
+    # GPU; the CPU backend (this suite) resolves to XLA
     from spectralmc_tpu.ops.gbm_pallas import pallas_supported
 
     assert resolve_implementation(
@@ -577,9 +577,9 @@ def test_blackscholes_facade_threads_forward_start_step() -> None:
 # Under flat log-Euler GBM each reset period's log-return is an exact
 # Gaussian sum, so the kernel draws ONE N(k·drift, k·vol²·dt) normal per
 # period — the identical distribution with reset_every× fewer draws. The
-# CPU interpreter stubs the hardware PRNG to all-zero bits, which pins
+# zero-bit stream (tests/helpers/kernels.py) yields all-zero bits, which pins
 # u1 = 2^-25 and theta = 0 exactly — the deterministic skeleton is
-# closed-form checkable; statistics are gated on real TPU below.
+# closed-form checkable; statistics are gated on the card below.
 # ---------------------------------------------------------------------------
 
 
@@ -611,12 +611,12 @@ def _run_cliquet_interpret(
     antithetic_half: int | None = None,
     seed: int = 3,
 ):
-    from jax.experimental.pallas import tpu as pltpu
+    from tests.helpers.kernels import zero_bits
 
     from spectralmc_tpu.ops.gbm_pallas import simulate_underlier_rows_pallas
 
     arr = make_contract(vol=0.3).as_array(jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         return simulate_underlier_rows_pallas(
             jax.random.PRNGKey(seed), arr, timesteps=timesteps, rows=rows,
             cols=cols, dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -656,8 +656,8 @@ def test_cliquet_pallas_interpret_zero_bits_closed_form() -> None:
 
 def test_cliquet_pallas_interpret_bounds_and_antithetic_mirror() -> None:
     """The accumulator is bounded in [n_periods·floor, n_periods·cap]; with
-    zero bits every draw is z = +r, so the antithetic bottom half runs the
-    EXACT mirrored skeleton: clip(e^{pd − pv·r} − 1) replaces the top half's
+    zero bits every draw is z = +r, so the antithetic partners (odd rows)
+    run the EXACT mirrored skeleton: clip(e^{pd − pv·r} − 1) replaces the top half's
     clip(e^{pd + pv·r} − 1) while the z2 = 0 period term is shared."""
     u = np.asarray(_run_cliquet_interpret(antithetic_half=4))
     n_p = 4
@@ -673,14 +673,12 @@ def test_cliquet_pallas_interpret_bounds_and_antithetic_mirror() -> None:
         hit = float(np.clip(math.exp(pd + sign * pv * r) - 1.0, -0.02, 0.05))
         return (n_p // 2) * (hit + mid)
 
-    np.testing.assert_allclose(u[:4], half(+1.0), rtol=1e-5)
-    np.testing.assert_allclose(u[4:], half(-1.0), rtol=1e-5)
+    np.testing.assert_allclose(u[0::2], half(+1.0), rtol=1e-5)
+    np.testing.assert_allclose(u[1::2], half(-1.0), rtol=1e-5)
 
 
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu", reason="statistical gate needs the real kernel PRNG"
-)
-def test_cliquet_pallas_statistics_vs_oracle_tpu() -> None:
+@pytest.mark.card
+def test_cliquet_pallas_statistics_vs_oracle_tpu(card: None) -> None:
     """On-chip: the kernel's per-period sampling must agree with BOTH the
     exact lattice oracle (price channel) and the XLA engine's estimate —
     same distribution, different bit streams."""

@@ -43,7 +43,7 @@ from tests.helpers import expect_failure, expect_success
 
 
 def test_bf16_tensor_roundtrip() -> None:
-    """bfloat16 is the TPU's native matmul dtype; numpy doesn't know it —
+    """bfloat16 is a native matmul dtype of accelerators; numpy doesn't know it —
     the decoder must resolve it through ml_dtypes."""
     arr = np.arange(8, dtype=ml_dtypes.bfloat16).reshape(2, 4)
     proto = tensor_to_proto(arr)

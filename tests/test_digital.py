@@ -294,9 +294,9 @@ def test_basket_digital_geometric_effective_oracle() -> None:
 
 def test_digital_pallas_wrapper_transform_interpret_mode() -> None:
     """The Pallas route is the terminal kernel + sign transform, bit-exactly
-    (interpret mode stubs the hardware PRNG — the kernels still run the same
+    (under the zero-bit stream the kernels still run the same
     program, so the transform identity is exact)."""
-    from jax.experimental.pallas import tpu as pltpu
+    from tests.helpers.kernels import zero_bits
 
     from spectralmc_tpu.ops.gbm_pallas import (
         simulate_terminal_rows_pallas,
@@ -307,7 +307,7 @@ def test_digital_pallas_wrapper_transform_interpret_mode() -> None:
     arr = c.as_array(jnp.float32)
     kwargs = dict(timesteps=4, rows=8, cols=128, dtype=jnp.float32,
                   scheme=PathScheme.LOG_EULER, interpret=True)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         term = simulate_terminal_rows_pallas(jax.random.PRNGKey(2), arr, **kwargs)
         dig = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(2), arr, payoff=PayoffKind.DIGITAL, **kwargs

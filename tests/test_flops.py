@@ -8,9 +8,10 @@ docstring are pinned here against small hand-counted cases.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 
 from spectralmc_tpu.utils.flops import (
-    V5E_PEAK_BF16_FLOPS,
+    PEAK_MATMUL_FLOPS,
     fft_flops,
     matmul_forward_flops,
     mfu,
@@ -55,7 +56,24 @@ def test_sim_path_steps() -> None:
     assert sim_path_steps(2, 3, 5, 7) == 2 * 3 * 5 * 7
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 def test_mfu_fraction() -> None:
-    tflops, frac = mfu(1e9, 1000.0)  # 1 GFLOP/step at 1000 steps/s = 1 TFLOP/s
+    # 1 GFLOP/step at 1000 steps/s = 1 TFLOP/s against 67 TFLOP/s float32
+    tflops, frac = mfu(1e9, 1000.0, device_kind=H100)
     assert abs(tflops - 1.0) < 1e-12
-    assert abs(frac - 1e12 / V5E_PEAK_BF16_FLOPS) < 1e-15
+    assert abs(frac - 1e12 / 67e12) < 1e-15
+
+
+def test_mfu_precision_selects_the_peak() -> None:
+    _, frac = mfu(1e9, 1000.0, device_kind=H100, precision="bfloat16")
+    assert abs(frac - 1e12 / PEAK_MATMUL_FLOPS[H100]["bfloat16"]) < 1e-15
+
+
+@pytest.mark.parametrize(
+    "device_kind,precision", [("NVIDIA A100-SXM4-80GB", "highest"), ("cpu", "highest"), (H100, "fp8")]
+)
+def test_mfu_unknown_device_or_precision_raises(device_kind: str, precision: str) -> None:
+    with pytest.raises(ValueError, match="no peak matmul rate"):
+        mfu(1e9, 1000.0, device_kind=device_kind, precision=precision)

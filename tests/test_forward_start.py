@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
+from tests.helpers.kernels import zero_bits
 
 from spectralmc_tpu.core.errors.gbm import InvalidSimulationParams
 from spectralmc_tpu.ops.analytic import forward_start_price
@@ -300,7 +300,7 @@ def test_forward_start_pallas_interpret_zero_bit_replay() -> None:
     c = make_contract(vol=0.25)
     arr = c.as_array(jnp.float32)
     n, m = 16, 6
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         rows = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=n, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER, payoff=FS,
@@ -341,7 +341,7 @@ def test_forward_start_pallas_interpret_all_dynamics_structural() -> None:
     spec_a = spec_g.model_copy(update={"combine": BasketCombine.ARITHMETIC})
     shape = tuple(1.0 + 0.2 * math.sin(i) for i in range(n))
     term = TermStructure(vol_shape=shape)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         outs = {
             "gbm_term": simulate_underlier_rows_pallas(
                 key, c6, timesteps=n, rows=8, cols=128, dtype=jnp.float32,

@@ -1,20 +1,24 @@
-"""Pallas GBM kernel tests.
+"""Pallas kernel tests (Triton route, interpret mode on the CPU).
 
-The CPU interpreter stubs the hardware PRNG (``prng_random_bits`` returns
-zeros), so statistical validation of the kernel runs on real TPU only (the
-bench does it; /tmp probes confirmed mean/log-variance match analytic GBM).
-Here we verify: structure under ``force_tpu_interpret_mode`` (zero-normals
-paths follow pure drift exactly — a sharp analytic check of everything
-EXCEPT the RNG), and the dtype/shape fallbacks to the XLA path.
+Here we verify: the in-kernel threefry stream against ``jax.random``'s own
+threefry and a plain-jnp replay of the kernel's draws (block shape and
+``row_offset`` independence included), structure under the zero-bit
+stream (``tests.helpers.kernels.zero_bits``: every path is the same deterministic
+path, a sharp analytic check of everything except the RNG distribution),
+and the wrappers' refusals where a kernel cannot run. Statistical checks of
+the compiled kernels against closed forms run on the card (``chip_smoke.py``
+and the ``card``-marked tests).
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
+from tests.helpers.kernels import zero_bits
 
 from spectralmc_tpu.ops.gbm import PathScheme
 from spectralmc_tpu.ops.gbm_pallas import (
@@ -29,10 +33,7 @@ CONTRACT = make_contract(vol=0.25)
 def _run_interpret(scheme: PathScheme, timesteps: int = 8, rows: int = 8, cols: int = 128):
     key = jax.random.PRNGKey(1)
     arr = CONTRACT.as_array(jnp.float32)
-    # interpret=True (not just force_tpu_interpret_mode) so the engine's
-    # supported-gate picks the pallas path off-TPU instead of falling back
-    # to XLA.
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         return simulate_terminal_rows_pallas(
             key, arr, timesteps=timesteps, rows=rows, cols=cols,
             dtype=jnp.float32, scheme=scheme, interpret=True,
@@ -40,7 +41,7 @@ def _run_interpret(scheme: PathScheme, timesteps: int = 8, rows: int = 8, cols: 
 
 
 def test_interpret_mode_zero_normals_log_euler_is_pure_drift() -> None:
-    """With the interpreter's stubbed (all-zero) RNG, u1 = half-ulp exactly, so
+    """With the zero-bit stream, u1 = half-ulp exactly, so
     z = sqrt(-2 ln u1) deterministically; every path follows the same drift.
     We verify shape, finiteness, and that all paths are identical — the
     deterministic skeleton of the kernel is correct."""
@@ -69,10 +70,10 @@ def test_interpret_mode_euler_reflection_positive() -> None:
 def test_flat_api_shape() -> None:
     key = jax.random.PRNGKey(1)
     arr = CONTRACT.as_array(jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         flat = simulate_terminal_pallas(
             key, arr, timesteps=2, batches=8, network_size=128,
-            dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
+            dtype=jnp.float32, scheme=PathScheme.LOG_EULER, interpret=True,
         )
     assert flat.shape == (8 * 128,)
 
@@ -80,91 +81,103 @@ def test_flat_api_shape() -> None:
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(dtype=jnp.float64, rows=8, cols=128),  # fp64 -> XLA fallback
-        dict(dtype=jnp.float32, rows=7, cols=100),  # misaligned -> XLA fallback
+        dict(dtype=jnp.float64, rows=8, cols=128, interpret=True),  # fp64
+        dict(dtype=jnp.float32, rows=7, cols=100, interpret=True),  # not pow2
+        dict(dtype=jnp.float32, rows=12, cols=128, interpret=True),  # ragged
+        dict(dtype=jnp.float32, rows=8, cols=128, interpret=False),  # no GPU
     ],
 )
 def test_fallback_to_xla(kwargs) -> None:
-    """Unsupported dtype/shape must silently use the canonical XLA path."""
-    from spectralmc_tpu.ops.gbm import simulate_terminal_rows
-
+    """No silent fallback: an unsupported dtype, shape or backend raises
+    (gbm.resolve_implementation is the one router to the XLA engine)."""
     key = jax.random.PRNGKey(5)
     arr = CONTRACT.as_array(kwargs["dtype"])
-    got = simulate_terminal_rows_pallas(
-        key, arr, timesteps=2, rows=kwargs["rows"], cols=kwargs["cols"],
-        dtype=kwargs["dtype"], scheme=PathScheme.LOG_EULER,
-    )
-    want = simulate_terminal_rows(
-        key, arr, timesteps=2, rows=kwargs["rows"], cols=kwargs["cols"],
-        dtype=kwargs["dtype"], scheme=PathScheme.LOG_EULER,
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        simulate_terminal_rows_pallas(
+            key, arr, timesteps=2, rows=kwargs["rows"], cols=kwargs["cols"],
+            dtype=kwargs["dtype"], scheme=PathScheme.LOG_EULER,
+            interpret=kwargs["interpret"],
+        )
 
 
 def test_row_offset_falls_back_and_passes_through() -> None:
-    """Off-TPU, row_offset routes to the XLA path and must reproduce the
-    exact global rows (the sharding contract, SURVEY §2.9 DP design)."""
-    from spectralmc_tpu.ops.gbm import simulate_terminal_rows
-
+    """A shard owning rows [8, 16) passes row_offset=8 and reproduces exactly
+    the global rows of the unsharded kernel (the sharding contract, SURVEY
+    §2.9 DP design) — the stream is keyed by the GLOBAL row."""
     key = jax.random.PRNGKey(3)
     arr = CONTRACT.as_array(jnp.float32)
-    kw = dict(timesteps=4, cols=128, dtype=jnp.float32, scheme=PathScheme.LOG_EULER)
-    full = np.asarray(
-        simulate_terminal_rows(key, arr, rows=16, **kw)
-    )
-    hi = np.asarray(
-        simulate_terminal_rows_pallas(key, arr, rows=8, row_offset=8, **kw)
-    )
+    kw = dict(timesteps=4, cols=128, dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
+              interpret=True)
+    full = np.asarray(simulate_terminal_rows_pallas(key, arr, rows=16, **kw))
+    hi = np.asarray(simulate_terminal_rows_pallas(key, arr, rows=8, row_offset=8, **kw))
     assert np.array_equal(hi, full[8:])
 
 
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu", reason="Mosaic bit behavior needs real TPU"
-)
-def test_bm_radius_rsqrt_bit_identity_exhaustive_on_device() -> None:
-    """Exhaustive sqrt(x) vs x*rsqrt(x) over the full Box-Muller radius domain
-    INSIDE a Pallas kernel (the arithmetic the GBM/Heston kernels execute).
+def test_threefry_matches_jax_random() -> None:
+    """The in-kernel block function IS jax.random's threefry-2x32."""
+    from jax.extend.random import threefry_2x32
 
-    The v2 streams use ``x * rsqrt(x)``; this check documents whether the
-    current Mosaic backend evaluates it bit-identically to ``jnp.sqrt`` on
-    every one of the 2^24 possible u1 inputs. The stream version is bumped
-    regardless (the identity is backend-dependent — it fails on CPU), so a
-    mismatch here is INFORMATION, not a failure of the determinism contract;
-    the assert pins the backend this kernel build was verified on.
-    """
-    from functools import partial
+    from spectralmc_tpu.ops.gbm_pallas import threefry2x32
 
-    from jax.experimental import pallas as pl
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 2**32, size=(3, 64), dtype=np.uint64).astype(np.uint32)
+    for k0, k1 in ((0, 0), (123, 456), (0xFFFFFFFF, 0x9E3779B9)):
+        key = jnp.array([k0, k1], jnp.uint32)
+        x0, x1 = jnp.asarray(words[0]), jnp.asarray(words[1])
+        want = np.asarray(threefry_2x32(key, jnp.concatenate([x0, x1])))
+        y0, y1 = threefry2x32(key[0], key[1], x0, x1)
+        np.testing.assert_array_equal(np.concatenate([y0, y1]), want)
 
-    n = 1 << 24
-    block = 1 << 17  # 128k lanes per grid step
 
-    def kernel(u_ref, out_ref):
-        u1 = u_ref[...]
-        x = jnp.float32(-2.0) * jnp.log(u1)
-        a = jnp.sqrt(x)
-        b = x * jax.lax.rsqrt(jnp.maximum(x, jnp.float32(1e-30)))
-        out_ref[...] = (
-            pltpu.bitcast(a, jnp.int32) != pltpu.bitcast(b, jnp.int32)
-        ).astype(jnp.int32)
+def _replay_terminal(key, arr, *, timesteps, rows, cols, antithetic=False):
+    """Plain-jnp replay of the flat log-Euler TERMINAL kernel from
+    ``stream_bits``: pair draw p advances two steps with
+    r·√2·sin(2π(u2 + 1/8))."""
+    from spectralmc_tpu.ops.gbm_pallas import _bm_radius, _sin_turns, _unit, stream_bits
 
-    run = pl.pallas_call(
-        kernel,
-        grid=(n // block,),
-        in_specs=[pl.BlockSpec((1, block), lambda i: (i, 0))],
-        out_specs=pl.BlockSpec((1, block), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n // block, block), jnp.int32),
+    words = jax.random.key_data(key).astype(jnp.uint32).reshape(2)
+    r_idx = jnp.arange(rows, dtype=jnp.uint32)[:, None]
+    c_idx = jnp.arange(cols, dtype=jnp.uint32)[None, :]
+    spot, _, mat, rate, div, vol = (float(x) for x in arr)
+    dt = mat / timesteps
+    drift = (rate - div - 0.5 * vol * vol) * dt
+    logx = jnp.full((rows, cols), np.log(spot), jnp.float32)
+    sign = 1.0 - 2.0 * (r_idx % 2).astype(jnp.float32) if antithetic else 1.0
+    for p in range(timesteps // 2):
+        b0, b1 = stream_bits(
+            (words[0], words[1]), r_idx, c_idx, p, total_cols=cols, antithetic=antithetic
+        )
+        u1 = _unit(b0) + jnp.float32(2.0**-25)
+        z = _bm_radius(u1) * jnp.float32(np.sqrt(2.0)) * _sin_turns(_unit(b1) + jnp.float32(0.125))
+        logx = logx + jnp.float32(2.0 * drift) + jnp.float32(vol * np.sqrt(dt)) * (sign * z)
+    return np.exp(np.asarray(logx))
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("block", [(8, 128), (2, 32), (16, 256)])
+def test_kernel_stream_matches_plain_replay_any_block(
+    monkeypatch: pytest.MonkeyPatch, block: tuple[int, int], antithetic: bool
+) -> None:
+    """The kernel's draws are the plain-jnp ``stream_bits`` replay, whatever
+    the block shape: the stream is addressed by (key, global row, global
+    column, draw), not by the program that evaluates it."""
+    from spectralmc_tpu.ops import gbm_pallas as gp
+
+    monkeypatch.setattr(gp, "BLOCK_ROWS", block[0])
+    monkeypatch.setattr(gp, "BLOCK_COLS", block[1])
+    jax.clear_caches()
+    key = jax.random.PRNGKey(7)
+    arr = CONTRACT.as_array(jnp.float32)
+    got = np.asarray(
+        simulate_terminal_rows_pallas(
+            key, arr, timesteps=4, rows=16, cols=256, dtype=jnp.float32,
+            scheme=PathScheme.LOG_EULER, interpret=True,
+            antithetic_half=8 if antithetic else None,
+        )
     )
-
-    # u1 = k * 2^-24 + 2^-25 for k in [0, 2^24): the exact generator outputs
-    k = jnp.arange(n, dtype=jnp.uint32).reshape(n // block, block)
-    u1 = k.astype(jnp.float32) * jnp.float32(2.0**-24) + jnp.float32(2.0**-25)
-    mismatches = int(jnp.sum(run(u1)))
-    assert mismatches == 0, (
-        f"{mismatches} one-ulp sqrt/rsqrt mismatches on this backend — the "
-        "v2 Pallas stream differs from the build this kernel was verified "
-        "on; bump PALLAS_STREAM_VERSIONS before shipping kernels from here"
-    )
+    jax.clear_caches()
+    want = _replay_terminal(key, arr, timesteps=4, rows=16, cols=256, antithetic=antithetic)
+    np.testing.assert_allclose(got, want, rtol=2e-6)
 
 
 def test_terminal_pathwise_vjp_matches_autodiff() -> None:
@@ -210,7 +223,9 @@ def test_terminal_pathwise_vjp_matches_autodiff_antithetic_f32() -> None:
 
 
 def test_pallas_diff_wrapper_falls_back_and_differentiates() -> None:
-    """Off-TPU the diff wrapper routes to the XLA engine and grads flow."""
+    """Grads flow through the kernel's custom VJP (interpret mode), and off
+    the GPU without interpret=True the wrapper refuses instead of falling
+    back."""
     from spectralmc_tpu.ops.gbm_pallas import simulate_terminal_rows_pallas_diff
 
     key = jax.random.PRNGKey(2)
@@ -219,11 +234,16 @@ def test_pallas_diff_wrapper_falls_back_and_differentiates() -> None:
     def mean_terminal(c):
         return jnp.mean(
             simulate_terminal_rows_pallas_diff(
-                key, c, timesteps=4, rows=8, cols=128, dtype=jnp.float32
+                key, c, timesteps=4, rows=8, cols=128, dtype=jnp.float32,
+                interpret=True,
             )
         )
 
     g = np.asarray(jax.grad(mean_terminal)(arr))
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        simulate_terminal_rows_pallas_diff(
+            key, arr, timesteps=4, rows=8, cols=128, dtype=jnp.float32
+        )
     assert np.isfinite(g).all()
     assert g[0] > 0.0  # d E[S_T] / d S0 = e^{(r-q)T} > 0
     assert g[1] == 0.0  # strike never enters the simulator
@@ -240,10 +260,10 @@ def test_greeks_engine_selection() -> None:
         timesteps=4, network_size=128, batches_per_mc_run=8,
         implementation=SimImplementation.PALLAS,
     )
-    # off-TPU pallas_supported is False -> XLA; on TPU this resolves PALLAS
+    # off the GPU pallas_supported is False -> XLA; on the GPU it is PALLAS
     expected = (
         SimImplementation.PALLAS
-        if jax.default_backend() == "tpu"
+        if jax.default_backend() == "gpu"
         else SimImplementation.XLA
     )
     assert greeks_engine(pal) == expected
@@ -283,7 +303,7 @@ def test_basket_interpret_zero_normals_matches_closed_form() -> None:
     c = CONTRACT
     arr = c.as_array(jnp.float32)
     T_STEPS, ROWS, COLS = 6, 8, 128
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         rows = simulate_basket_underlier_rows_pallas(
             key, arr, spec=spec, timesteps=T_STEPS, rows=ROWS, cols=COLS,
             dtype=jnp.float32, payoff=PayoffKind.TERMINAL, interpret=True,
@@ -310,8 +330,7 @@ def test_basket_interpret_zero_normals_matches_closed_form() -> None:
 
 
 def test_basket_pallas_fallback_matches_xla() -> None:
-    """Off-TPU/odd shapes the basket kernel must route to the XLA path."""
-    from spectralmc_tpu.ops.basket import simulate_basket_underlier_rows
+    """Odd shapes make the basket wrapper refuse (no silent XLA fallback)."""
     from spectralmc_tpu.ops.gbm import PayoffKind
     from spectralmc_tpu.ops.gbm_pallas import simulate_basket_underlier_rows_pallas
 
@@ -320,9 +339,8 @@ def test_basket_pallas_fallback_matches_xla() -> None:
     arr = CONTRACT.as_array(jnp.float32)
     kw = dict(spec=spec, timesteps=2, rows=7, cols=100, dtype=jnp.float32,
               payoff=PayoffKind.ASIAN_ARITHMETIC)
-    got = simulate_basket_underlier_rows_pallas(key, arr, **kw)
-    want = simulate_basket_underlier_rows(key, arr, **kw)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(ValueError, match="basket"):
+        simulate_basket_underlier_rows_pallas(key, arr, interpret=True, **kw)
 
 
 def test_basket_pallas_resolves_and_dispatches() -> None:
@@ -346,7 +364,7 @@ def test_basket_pallas_resolves_and_dispatches() -> None:
     ).expect("sim")
     expected = (
         SimImplementation.PALLAS
-        if jax.default_backend() == "tpu"
+        if jax.default_backend() == "gpu"
         else SimImplementation.XLA
     )
     assert resolve_implementation(sim) == expected
@@ -419,7 +437,7 @@ def test_merton_interpret_zero_bits_matches_closed_form() -> None:
     c = _merton_contract()
     arr = c.as_array(jnp.float32)
     T_STEPS, ROWS, COLS = 6, 8, 128
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         rows = simulate_merton_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T_STEPS, rows=ROWS, cols=COLS,
             dtype=jnp.float32, payoff=PayoffKind.TERMINAL, interpret=True,
@@ -436,18 +454,16 @@ def test_merton_interpret_zero_bits_matches_closed_form() -> None:
 
 
 def test_merton_pallas_fallback_matches_xla() -> None:
-    """Off-TPU/odd shapes the merton kernel must route to the XLA path."""
+    """Odd shapes make the merton wrapper refuse (no silent XLA fallback)."""
     from spectralmc_tpu.ops.gbm import PayoffKind
     from spectralmc_tpu.ops.gbm_pallas import simulate_merton_underlier_rows_pallas
-    from spectralmc_tpu.ops.merton import simulate_merton_underlier_rows
 
     arr = _merton_contract().as_array(jnp.float32)
     key = jax.random.PRNGKey(5)
     kw = dict(timesteps=2, rows=7, cols=100, dtype=jnp.float32,
               payoff=PayoffKind.ASIAN_ARITHMETIC)
-    got = simulate_merton_underlier_rows_pallas(key, arr, **kw)
-    want = simulate_merton_underlier_rows(key, arr, **kw)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(ValueError, match="merton"):
+        simulate_merton_underlier_rows_pallas(key, arr, interpret=True, **kw)
 
 
 def test_merton_pallas_resolves_and_dispatches() -> None:
@@ -469,7 +485,7 @@ def test_merton_pallas_resolves_and_dispatches() -> None:
     ).expect("sim")
     expected = (
         SimImplementation.PALLAS
-        if jax.default_backend() == "tpu"
+        if jax.default_backend() == "gpu"
         else SimImplementation.XLA
     )
     assert resolve_implementation(sim) == expected
@@ -505,7 +521,7 @@ def test_american_interpret_zero_bits_matches_deterministic_dp(
     c = CONTRACT
     arr = c.as_array(jnp.float32)
     option = OptionSide.CALL if side == "call" else OptionSide.PUT
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         u = simulate_american_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=timesteps, rows=8, cols=128,
             dtype=jnp.float32, option=option, exercise_every=every,
@@ -537,9 +553,8 @@ def test_american_interpret_zero_bits_matches_deterministic_dp(
 
 
 def test_american_pallas_fallback_matches_xla() -> None:
-    """Off-TPU (and odd shapes) the wrapper must route to the XLA LSMC path
-    bit-for-bit, including the axis-less regression and antithetic halves."""
-    from spectralmc_tpu.ops.american import simulate_american_underlier_rows
+    """Off the GPU (without interpret) and at grids the kernel cannot run
+    the wrapper refuses; in interpret mode antithetic + sparse grids run."""
     from spectralmc_tpu.ops.gbm_pallas import simulate_american_underlier_rows_pallas
     from spectralmc_tpu.ops.greeks import OptionSide
 
@@ -549,15 +564,20 @@ def test_american_pallas_fallback_matches_xla() -> None:
         timesteps=4, rows=8, cols=128, dtype=jnp.float32,
         option=OptionSide.PUT, exercise_every=2, antithetic_half=4,
     )
-    got = simulate_american_underlier_rows_pallas(key, arr, **kw)
-    want = simulate_american_underlier_rows(key, arr, **kw)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        simulate_american_underlier_rows_pallas(key, arr, **kw)
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        simulate_american_underlier_rows_pallas(
+            key, arr, **{**kw, "exercise_every": 4}, interpret=True
+        )  # one monitor date
+    out = np.asarray(simulate_american_underlier_rows_pallas(key, arr, interpret=True, **kw))
+    assert out.shape == (8, 128) and np.isfinite(out).all()
 
 
 def test_american_pallas_resolves_and_dispatches() -> None:
     """resolve_implementation no longer short-circuits GBM-American to XLA;
     the dispatch seam selects the pallas wrapper for PALLAS sims (which
-    itself falls back off-TPU); non-GBM dynamics still resolve to XLA; and
+    itself refuses off the GPU); non-GBM dynamics still resolve to XLA; and
     the American stream is versioned under its own key."""
     from spectralmc_tpu.ops.dispatch import make_underlier_simulator
     from spectralmc_tpu.ops.gbm import (
@@ -576,7 +596,7 @@ def test_american_pallas_resolves_and_dispatches() -> None:
     ).expect("sim")
     expected = (
         SimImplementation.PALLAS
-        if jax.default_backend() == "tpu"
+        if jax.default_backend() == "gpu"
         else SimImplementation.XLA
     )
     assert resolve_implementation(sim) == expected
@@ -598,24 +618,18 @@ def test_american_pallas_resolves_and_dispatches() -> None:
 
 
 def test_american_monitor_block_vmem_budget() -> None:
-    """The out-block VMEM fit drives block-row selection; the support
-    predicate rejects grids the kernel cannot honor."""
-    from spectralmc_tpu.ops.gbm_pallas import (
-        _monitor_block_rows,
-        pallas_american_supported,
-    )
+    """The support predicate accepts power-of-two tiles and 2..128 monitor
+    dates and rejects grids the kernel cannot honor."""
+    from spectralmc_tpu.ops.gbm_pallas import _american_shape_ok
 
-    # budget is 4 MiB: the out block is double-buffered across grid steps,
-    # so 2x budget + state/RNG must fit the 16 MiB scoped-VMEM limit
-    assert _monitor_block_rows(4096, 256, 16) == 256  # exactly 4 MiB fits
-    assert _monitor_block_rows(4096, 256, 64) == 64  # NOT 128 (8 MiB block
-    # double-buffered blew the scoped limit on-chip — round 4 regression)
-    assert _monitor_block_rows(4096, 256, 128) == 32  # shrinks further
-    assert _monitor_block_rows(8, 128, 16) == 8  # small rows cap the block
     kw = dict(dtype=jnp.float32, rows=4096, cols=256)
-    assert not pallas_american_supported(timesteps=9, exercise_every=2, **kw)
-    assert not pallas_american_supported(timesteps=4, exercise_every=4, **kw)
-    assert not pallas_american_supported(timesteps=512, exercise_every=1, **kw)
+    assert _american_shape_ok(timesteps=16, exercise_every=1, **kw)
+    assert _american_shape_ok(timesteps=256, exercise_every=2, **kw)
+    assert not _american_shape_ok(timesteps=9, exercise_every=2, **kw)
+    assert not _american_shape_ok(timesteps=4, exercise_every=4, **kw)
+    assert not _american_shape_ok(timesteps=512, exercise_every=1, **kw)
+    assert not _american_shape_ok(timesteps=16, exercise_every=1, dtype=jnp.float32,
+                                  rows=12, cols=256)
 
 
 # --------------------------------------------------------------------------
@@ -652,7 +666,7 @@ def test_heston_american_interpret_zero_bits_matches_dp() -> None:
     c = _heston_contract()
     arr = c.as_array(jnp.float32)
     T_STEPS = 6
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         u = simulate_heston_american_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T_STEPS, rows=8, cols=128,
             dtype=jnp.float32, option=OptionSide.CALL, interpret=True,
@@ -687,7 +701,7 @@ def test_merton_american_interpret_zero_bits_matches_dp() -> None:
     c = _merton_contract()
     arr = c.as_array(jnp.float32)
     T_STEPS = 6
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         u = simulate_merton_american_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T_STEPS, rows=8, cols=128,
             dtype=jnp.float32, option=OptionSide.CALL, exercise_every=2,
@@ -734,7 +748,7 @@ def test_basket_american_interpret_zero_bits_matches_dp(combine: str) -> None:
     c = CONTRACT
     arr = c.as_array(jnp.float32)
     T_STEPS = 6
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         u = simulate_basket_american_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, spec=spec, timesteps=T_STEPS, rows=8,
             cols=128, dtype=jnp.float32, option=OptionSide.CALL, interpret=True,
@@ -762,9 +776,9 @@ def test_basket_american_interpret_zero_bits_matches_dp(combine: str) -> None:
 
 @pytest.mark.parametrize("family", ["heston", "merton", "basket"])
 def test_family_american_pallas_fallback_matches_xla(family: str) -> None:
-    """Off-TPU every family-American wrapper must route to its XLA LSMC
-    path bit-for-bit (antithetic + sparse monitor grid included)."""
-    from spectralmc_tpu.ops import american as am
+    """Off the GPU every family-American wrapper refuses without
+    interpret=True, and runs in interpret mode (antithetic + sparse monitor
+    grid included)."""
     from spectralmc_tpu.ops import gbm_pallas as gp
     from spectralmc_tpu.ops.greeks import OptionSide
 
@@ -775,25 +789,24 @@ def test_family_american_pallas_fallback_matches_xla(family: str) -> None:
     )
     if family == "heston":
         arr = _heston_contract().as_array(jnp.float32)
-        got = gp.simulate_heston_american_underlier_rows_pallas(key, arr, **kw)
-        want = am.simulate_heston_american_underlier_rows(key, arr, **kw)
+        fn = gp.simulate_heston_american_underlier_rows_pallas
     elif family == "merton":
         arr = _merton_contract().as_array(jnp.float32)
-        got = gp.simulate_merton_american_underlier_rows_pallas(key, arr, **kw)
-        want = am.simulate_merton_american_underlier_rows(key, arr, **kw)
+        fn = gp.simulate_merton_american_underlier_rows_pallas
     else:
-        spec = _basket_spec()
         arr = CONTRACT.as_array(jnp.float32)
-        got = gp.simulate_basket_american_underlier_rows_pallas(
-            key, arr, spec=spec, **kw
+        fn = functools.partial(
+            gp.simulate_basket_american_underlier_rows_pallas, spec=_basket_spec()
         )
-        want = am.simulate_basket_american_underlier_rows(key, arr, spec=spec, **kw)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        fn(key, arr, **kw)
+    out = np.asarray(fn(key, arr, interpret=True, **kw))
+    assert out.shape == (8, 128) and np.isfinite(out).all()
 
 
 def test_family_american_dispatch_selects_pallas_wrappers() -> None:
     """The dispatch seam routes PALLAS American sims of every dynamics
-    through the monitor-row wrappers (which fall back off-TPU), and each
+    through the monitor-row wrappers (which refuse off the GPU), and each
     family's American stream has its own version key."""
     from spectralmc_tpu.ops.dispatch import make_underlier_simulator
     from spectralmc_tpu.ops.gbm import (
@@ -847,7 +860,7 @@ def _term_curved():
 def test_term_interpret_zero_bits_matches_phase_identity() -> None:
     """Zero-bit RNG makes the term kernel a deterministic recursion we can
     replay host-side with the MODULE'S OWN scalar helpers: each pair adds
-    (d_a + d_b) + r0 * R_p * sin_turns(phi_p) — a sharp gate on the SMEM
+    (d_a + d_b) + r0 * R_p * sin_turns(phi_p) — a sharp gate on the coefficient
     table plumbing and the phase-shift pair identity, independent of the
     RNG distribution."""
     from spectralmc_tpu.ops.gbm_pallas import (
@@ -860,7 +873,7 @@ def test_term_interpret_zero_bits_matches_phase_identity() -> None:
     term = _term_curved()
     arr = CONTRACT.as_array(jnp.float32)
     T = 8
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         rows = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -900,7 +913,7 @@ def test_term_interpret_zero_bits_asian_and_barrier() -> None:
     for t_i in range(T):
         logx += float(step[t_i, 0]) + float(step[t_i, 1]) * z0
         logs.append(logx)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         asian = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -909,7 +922,7 @@ def test_term_interpret_zero_bits_asian_and_barrier() -> None:
     want_geo = np.exp(np.mean(np.asarray(logs, dtype=np.float64)))
     np.testing.assert_allclose(float(asian[0, 0]), want_geo, rtol=1e-5)
     # barrier far above any zero-bit path: terminal value survives
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         barrier = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -927,7 +940,7 @@ def test_term_flat_curves_take_the_flat_kernel_bitstream() -> None:
 
     arr = CONTRACT.as_array(jnp.float32)
     flat_term = TermStructure(vol_shape=(1.0,) * 8, rate_shape=(1.0,) * 8)
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         base = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(2), arr, timesteps=8, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -942,9 +955,8 @@ def test_term_flat_curves_take_the_flat_kernel_bitstream() -> None:
 
 
 def test_term_pallas_fallback_matches_xla() -> None:
-    """Off-TPU (no interpret) the wrapper falls back BIT-EXACTLY to the XLA
-    simulator with the term threaded through."""
-    from spectralmc_tpu.ops.gbm import simulate_underlier_rows
+    """Off the GPU (no interpret) the term wrapper refuses; the reflection-
+    Euler scheme under a curved term has no kernel and refuses everywhere."""
     from spectralmc_tpu.ops.gbm_pallas import simulate_underlier_rows_pallas
 
     term = _term_curved()
@@ -953,16 +965,18 @@ def test_term_pallas_fallback_matches_xla() -> None:
         timesteps=8, rows=8, cols=128, dtype=jnp.float32,
         scheme=PathScheme.LOG_EULER, payoff=PayoffKind.ASIAN_ARITHMETIC,
     )
-    got = simulate_underlier_rows_pallas(
-        jax.random.PRNGKey(3), arr, term=term, **kw
-    )
-    want = simulate_underlier_rows(jax.random.PRNGKey(3), arr, term=term, **kw)
-    assert np.array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        simulate_underlier_rows_pallas(jax.random.PRNGKey(3), arr, term=term, **kw)
+    with pytest.raises(ValueError, match="resolve_implementation"):
+        simulate_underlier_rows_pallas(
+            jax.random.PRNGKey(3), arr, term=term, interpret=True,
+            **{**kw, "scheme": PathScheme.EULER},
+        )
 
 
 def test_term_antithetic_in_block_mirroring() -> None:
-    """With antithetic on, the bottom half of each block mirrors the top
-    half's normals negated — under zero-bit RNG the two halves are the two
+    """With antithetic on, each odd row mirrors its even partner's normals
+    negated — under the zero-bit stream even and odd rows are the two
     deterministic +/- z0 paths."""
     from spectralmc_tpu.ops.gbm_pallas import (
         _bm_radius,
@@ -974,7 +988,7 @@ def test_term_antithetic_in_block_mirroring() -> None:
     term = _term_curved()
     arr = CONTRACT.as_array(jnp.float32)
     T = 8
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         rows = simulate_underlier_rows_pallas(
             jax.random.PRNGKey(1), arr, timesteps=T, rows=8, cols=128,
             dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
@@ -985,19 +999,19 @@ def test_term_antithetic_in_block_mirroring() -> None:
     step, _ = _term_coeff_tables(arr, term.shapes(T), T)
     r0 = float(_bm_radius(jnp.float32(2.0**-25)))
     z0 = r0 * float(_sin_turns(jnp.float32(0.25)))
-    for sign, row in ((1.0, 0), (-1.0, 4)):
+    for sign, row in ((1.0, 0), (-1.0, 1)):
         logx = float(jnp.log(arr[0]))
         acc = 0.0
         for t_i in range(T):
             logx += float(step[t_i, 0]) + float(step[t_i, 1]) * sign * z0
             acc += logx
         np.testing.assert_allclose(t[row, 0], np.exp(acc / T), rtol=1e-5)
-    assert not np.allclose(t[0, 0], t[4, 0])
+    assert not np.allclose(t[0, 0], t[1, 0])
 
 
 def test_term_stream_version_and_resolution() -> None:
-    """Curved terms carry their own stream key; flat terms do not. Off-TPU
-    resolution is XLA (pallas_supported needs the hardware)."""
+    """Curved terms carry their own stream key; flat terms do not. Off the
+    GPU resolution is XLA (pallas_supported needs the card)."""
     from spectralmc_tpu.ops.gbm import (
         ModelKind,
         SimImplementation,
@@ -1006,13 +1020,14 @@ def test_term_stream_version_and_resolution() -> None:
     )
     from spectralmc_tpu.ops.gbm_pallas import pallas_stream_version
 
-    assert pallas_stream_version(ModelKind.GBM, term=True) == 1
-    assert pallas_stream_version(ModelKind.GBM, term=False) == 2  # flat gbm v2
+    # the Triton kernels' in-kernel threefry stream bumped every key
+    assert pallas_stream_version(ModelKind.GBM, term=True) == 2
+    assert pallas_stream_version(ModelKind.GBM, term=False) == 3
     sim = build_simulation_params(
         timesteps=8, network_size=128, batches_per_mc_run=8, mc_seed=1,
         implementation=SimImplementation.PALLAS, term=_term_curved(),
     ).expect("sim")
-    assert resolve_implementation(sim) == SimImplementation.XLA  # off-TPU
+    assert resolve_implementation(sim) == SimImplementation.XLA  # off the GPU
 
 
 def test_terminal_pathwise_vjp_term_matches_autodiff() -> None:
@@ -1068,3 +1083,183 @@ def test_greeks_engine_keeps_pallas_under_term() -> None:
         np.testing.assert_allclose(
             g.by_field[field], g2.by_field[field], rtol=1e-5, atol=1e-7
         )
+
+
+# --------------------------------------------------------------------------
+# Stream addressing across every kernel: the same draws whatever the block
+# shape or the shard's row offset
+# --------------------------------------------------------------------------
+
+
+def _family_runner(kind: str):
+    """(fn, contract) for one kernel: fn(key, arr, rows=, row_offset=) runs it
+    in interpret mode at 16 x 256, 8 steps, antithetic on."""
+    from spectralmc_tpu.ops import gbm_pallas as gp
+    from spectralmc_tpu.ops.gbm import PayoffKind
+    from spectralmc_tpu.ops.greeks import OptionSide
+
+    base = dict(timesteps=8, cols=256, dtype=jnp.float32, interpret=True)
+    flat = functools.partial(
+        gp.simulate_underlier_rows_pallas, scheme=PathScheme.LOG_EULER, **base
+    )
+    american = dict(option=OptionSide.PUT, exercise_every=2, **base)
+    table = {
+        "gbm_terminal": (functools.partial(flat, payoff=PayoffKind.TERMINAL), CONTRACT),
+        "gbm_asian": (functools.partial(flat, payoff=PayoffKind.ASIAN_ARITHMETIC), CONTRACT),
+        "gbm_barrier": (
+            functools.partial(flat, payoff=PayoffKind.BARRIER_UP_OUT, barrier_rel=1.2),
+            CONTRACT,
+        ),
+        "gbm_variance": (functools.partial(flat, payoff=PayoffKind.VARIANCE_SWAP), CONTRACT),
+        "gbm_cliquet": (
+            functools.partial(
+                flat, payoff=PayoffKind.CLIQUET, cliquet_reset_every=2,
+                cliquet_floor=-0.05, cliquet_cap=0.05,
+            ),
+            CONTRACT,
+        ),
+        "gbm_term": (
+            functools.partial(flat, payoff=PayoffKind.TERMINAL, term=_term_curved()),
+            CONTRACT,
+        ),
+        "gbm_euler": (
+            functools.partial(
+                gp.simulate_underlier_rows_pallas, scheme=PathScheme.EULER,
+                payoff=PayoffKind.TERMINAL, **base,
+            ),
+            CONTRACT,
+        ),
+        "heston": (
+            functools.partial(
+                gp.simulate_heston_underlier_rows_pallas, payoff=PayoffKind.TERMINAL, **base
+            ),
+            _heston_contract(),
+        ),
+        "merton": (
+            functools.partial(
+                gp.simulate_merton_underlier_rows_pallas, payoff=PayoffKind.TERMINAL, **base
+            ),
+            _merton_contract(),
+        ),
+        "basket": (
+            functools.partial(
+                gp.simulate_basket_underlier_rows_pallas, spec=_basket_spec(),
+                payoff=PayoffKind.TERMINAL, **base,
+            ),
+            CONTRACT,
+        ),
+        "american_gbm": (
+            functools.partial(gp.simulate_american_underlier_rows_pallas, **american),
+            CONTRACT,
+        ),
+        "american_heston": (
+            functools.partial(gp.simulate_heston_american_underlier_rows_pallas, **american),
+            _heston_contract(),
+        ),
+        "american_merton": (
+            functools.partial(gp.simulate_merton_american_underlier_rows_pallas, **american),
+            _merton_contract(),
+        ),
+        "american_basket": (
+            functools.partial(
+                gp.simulate_basket_american_underlier_rows_pallas, spec=_basket_spec(),
+                **american,
+            ),
+            CONTRACT,
+        ),
+    }
+    fn, contract = table[kind]
+    return fn, contract.as_array(jnp.float32)
+
+
+KERNEL_KINDS = [
+    "gbm_terminal", "gbm_asian", "gbm_barrier", "gbm_variance", "gbm_cliquet",
+    "gbm_term", "gbm_euler", "heston", "merton", "basket",
+]
+
+
+@pytest.mark.parametrize("kind", KERNEL_KINDS + ["american_gbm", "american_basket"])
+def test_every_kernel_stream_independent_of_block_shape(
+    monkeypatch: pytest.MonkeyPatch, kind: str
+) -> None:
+    """Each kernel emits the same values under two different tilings: its
+    draws are addressed by (key, global row, global column, draw index)."""
+    from spectralmc_tpu.ops import gbm_pallas as gp
+
+    fn, arr = _family_runner(kind)
+    key = jax.random.PRNGKey(11)
+    outs = []
+    for block in ((8, 128), (4, 64)):
+        monkeypatch.setattr(gp, "BLOCK_ROWS", block[0])
+        monkeypatch.setattr(gp, "BLOCK_COLS", block[1])
+        jax.clear_caches()
+        outs.append(np.asarray(fn(key, arr, rows=16, antithetic_half=8)))
+    jax.clear_caches()
+    assert np.isfinite(outs[0]).all()
+    if kind.startswith("american"):
+        # the LSMC regression reduces over the block-independent rows in
+        # the same order; only the forward tiling changed
+        np.testing.assert_allclose(outs[0], outs[1], rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("kind", KERNEL_KINDS)
+def test_every_kernel_shard_reproduces_global_rows(kind: str) -> None:
+    """A shard running rows [8, 16) with row_offset=8 reproduces exactly the
+    unsharded kernel's rows 8..15 (antithetic pairs included)."""
+    fn, arr = _family_runner(kind)
+    key = jax.random.PRNGKey(13)
+    full = np.asarray(fn(key, arr, rows=16, antithetic_half=8))
+    hi = np.asarray(fn(key, arr, rows=8, row_offset=8, antithetic_half=4))
+    np.testing.assert_array_equal(hi, full[8:])
+
+
+def test_pallas_supported_needs_gpu_and_pow2_tiles(monkeypatch: pytest.MonkeyPatch) -> None:
+    """The support predicate admits the GPU at power-of-two tilings only."""
+    from spectralmc_tpu.ops import gbm_pallas as gp
+
+    assert not gp.pallas_supported(dtype=jnp.float32, rows=2048, cols=512)  # CPU
+    monkeypatch.setattr(gp.jax, "default_backend", lambda: "gpu")
+    assert gp.pallas_supported(dtype=jnp.float32, rows=2048, cols=512)
+    assert gp.pallas_supported(dtype=jnp.float32, rows=2, cols=32)  # tiny tiles
+    assert not gp.pallas_supported(dtype=jnp.float64, rows=2048, cols=512)
+    assert not gp.pallas_supported(dtype=jnp.float32, rows=12, cols=512)
+    assert not gp.pallas_supported(dtype=jnp.float32, rows=2048, cols=96)
+    assert gp.pallas_american_supported(
+        dtype=jnp.float32, rows=2048, cols=512, timesteps=16, exercise_every=1
+    )
+
+
+@pytest.mark.parametrize(
+    "overrides,engine",
+    [
+        ({}, "pallas"),
+        ({"model": "heston"}, "pallas"),
+        ({"model": "merton_jump"}, "pallas"),
+        ({"payoff": "american_put", "normalization": "none"}, "pallas"),
+        ({"scheme": "euler", "payoff": "cliquet", "cliquet_reset_every": 2,
+          "cliquet_floor": -0.05, "cliquet_cap": 0.05, "normalization": "none"}, "xla"),
+        ({"precision": "float64"}, "xla"),
+    ],
+)
+def test_resolve_implementation_on_gpu(
+    monkeypatch: pytest.MonkeyPatch, overrides: dict, engine: str
+) -> None:
+    """On a GPU backend resolve_implementation routes PALLAS sims to the
+    kernels wherever one exists, and to XLA where none does."""
+    from spectralmc_tpu.ops import gbm_pallas as gp
+    from spectralmc_tpu.ops.gbm import (
+        SimImplementation,
+        build_simulation_params,
+        resolve_implementation,
+    )
+
+    if overrides.get("precision") == "float64":
+        jax.config.update("jax_enable_x64", True)
+    sim = build_simulation_params(
+        timesteps=8, network_size=128, batches_per_mc_run=8, mc_seed=1,
+        implementation="pallas", **overrides,
+    ).expect("sim")
+    monkeypatch.setattr(gp.jax, "default_backend", lambda: "gpu")
+    assert resolve_implementation(sim) == SimImplementation(engine)

@@ -302,7 +302,7 @@ def test_lookback_pallas_interpret_zero_bits_closed_form() -> None:
     with per-step z = r = sqrt(-2 ln 2^-25) (test_gbm_pallas discipline).
     The path is monotone increasing, so M = S_T and m = S_0 exactly — all
     four encodings have closed forms we pin."""
-    from jax.experimental.pallas import tpu as pltpu
+    from tests.helpers.kernels import zero_bits
 
     from spectralmc_tpu.ops.gbm_pallas import simulate_underlier_rows_pallas
 
@@ -322,7 +322,7 @@ def test_lookback_pallas_interpret_zero_bits_closed_form() -> None:
         PayoffKind.LOOKBACK_FLOAT_PUT: c.strike,  # M − S_T = 0
         PayoffKind.LOOKBACK_FLOAT_CALL: c.strike - (s_t - c.spot),
     }
-    with pltpu.force_tpu_interpret_mode():
+    with zero_bits():
         for payoff, expected in want.items():
             got = np.asarray(
                 simulate_underlier_rows_pallas(key, arr, payoff=payoff, **kwargs)

@@ -192,7 +192,7 @@ def test_config_gates() -> None:
     # PALLAS at a non-tileable shape (cols % 128 != 0) resolves to XLA ...
     sim = expect_success(build_simulation_params(**base, implementation="pallas"))
     assert resolve_implementation(sim) == SimImplementation.XLA
-    # ... and at kernel shapes the fused merton kernel honors PALLAS on TPU
+    # ... and at kernel shapes the fused merton kernel honors PALLAS on the GPU
     sim_ok = expect_success(
         build_simulation_params(
             **{**base, "network_size": 128, "batches_per_mc_run": 8},
@@ -201,7 +201,7 @@ def test_config_gates() -> None:
     )
     expected = (
         SimImplementation.PALLAS
-        if jax.default_backend() == "tpu"
+        if jax.default_backend() == "gpu"
         else SimImplementation.XLA
     )
     assert resolve_implementation(sim_ok) == expected

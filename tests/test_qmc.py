@@ -19,6 +19,7 @@ from spectralmc_tpu.core.result import Failure, Success
 from spectralmc_tpu.ops.analytic import black_scholes_price, geometric_asian_price
 from spectralmc_tpu.ops.gbm import (
     BlackScholes,
+    PathScheme,
     PayoffKind,
     SamplingKind,
     SimImplementation,
@@ -630,3 +631,78 @@ def test_inv_cdf_other_buckets_unchanged_and_finite() -> None:
         jnp.float32(1.4142135623730951) * jax.lax.erf_inv(jnp.asarray(x))
     )
     np.testing.assert_array_equal(z.view(np.uint32), want.view(np.uint32))
+
+
+# --------------------------------------------------------------------------
+# The XLA generator's own pieces: scrambled-Sobol bits -> inverse CDF ->
+# Brownian-bridge contraction, against the public generator
+# --------------------------------------------------------------------------
+
+PIPELINE_SHAPES = [
+    # (timesteps, factors, rows, cols, row_offset)
+    (16, 1, 64, 128, 0),
+    (64, 1, 16, 256, 0),
+    (16, 2, 32, 128, 0),
+    (8, 4, 64, 64, 0),
+    (16, 1, 64, 128, 192),  # start = 192*128 (aligned)
+    (16, 2, 32, 128, 1001),  # start = 1001*128 (misaligned)
+    (4, 1, 16, 128, 77),  # start = 77*128
+]
+
+
+@pytest.mark.parametrize("shape", PIPELINE_SHAPES)
+def test_generator_is_bits_inverse_cdf_then_bridge(
+    shape: tuple[int, int, int, int, int]
+) -> None:
+    """qmc_effective_normals_multi is exactly the composition of its pieces:
+    the shifted split-table Sobol bits at the global point offset, the
+    erf_inv inverse CDF, then ONE HIGHEST-precision bridge contraction over
+    the level axis (factor-major de-interleave) — at aligned and misaligned
+    row offsets."""
+    from spectralmc_tpu.ops.qmc import _inv_cdf, _qmc_tables, qmc_effective_normals_multi
+    from spectralmc_tpu.ops.sobol import sobol_uint32_t
+
+    T, F, rows, cols, off = shape
+    key = jax.random.PRNGKey(7)
+    sdims = qmc_sobol_dims(T, F)
+    assert sdims == T * F, "test shapes must be unpadded"
+    dnp, snp = _qmc_tables(sdims, 31)
+    shift_key, _ = jax.random.split(key)
+    draw_shift = jax.random.bits(shift_key, (sdims,), dtype=jnp.uint32)
+    start = jnp.uint32(off) * jnp.uint32(cols)
+    bits = sobol_uint32_t(jnp.asarray(dnp), jnp.asarray(snp) ^ draw_shift, start, rows * cols)
+    z = _inv_cdf(bits).reshape(T, F, rows * cols)
+    bb = jnp.asarray(brownian_bridge_matrix(T), dtype=jnp.float32)
+    want = jax.lax.dot_general(
+        bb, z, (((1,), (0,)), ((), ())), precision=jax.lax.Precision.HIGHEST
+    ).reshape(T, F, rows, cols)
+    got = qmc_effective_normals_multi(
+        key, timesteps=T, factors=F, rows=rows, cols=cols, dtype=jnp.float32,
+        mc_seed=31, row_offset=off,
+    )
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_public_generator_shape() -> None:
+    """The public multi-factor generator runs end to end on the XLA path."""
+    from spectralmc_tpu.ops.qmc import qmc_effective_normals_multi
+
+    out = qmc_effective_normals_multi(
+        jax.random.PRNGKey(3), timesteps=16, factors=1, rows=8, cols=128,
+        dtype=jnp.float32, mc_seed=5,
+    )
+    assert out.shape == (16, 1, 8, 128)
+    assert bool(jnp.isfinite(out).all())
+
+
+def test_asian_geometric_qmc_walk_runs() -> None:
+    """The Asian-geometric SOBOL_BB sim takes the scan over the bridged
+    normals and prices finitely."""
+    contract = jnp.asarray([100.0, 100.0, 1.0, 0.03, 0.01, 0.2], jnp.float32)
+    out = simulate_underlier_rows(
+        jax.random.PRNGKey(3), contract, timesteps=16, rows=8, cols=128,
+        dtype=jnp.float32, scheme=PathScheme.LOG_EULER,
+        payoff=PayoffKind.ASIAN_GEOMETRIC, sampling=SamplingKind.SOBOL_BB,
+        mc_seed=5,
+    )
+    assert out.shape == (8, 128) and bool(jnp.isfinite(out).all())

@@ -51,7 +51,7 @@ def test_plan_decisions() -> None:
     tree = {"w": jnp.ones((8, 8), jnp.float32)}
     stay = plan_tensor_transfer(tree, HostPlacement())
     assert isinstance(stay, StayOnPlacement)
-    move = plan_tensor_transfer(tree, DevicePlacement(device_kind="tpu"))
+    move = plan_tensor_transfer(tree, DevicePlacement(device_kind="gpu"))
     assert isinstance(move, DirectTransfer)
     assert move.total_bytes == 8 * 8 * 4
     big = {"w": np.ones((1024, 1024, 3), np.float64)}  # 24 MiB, cap it at 1 MiB
@@ -68,7 +68,7 @@ def test_move_tensor_tree_host_roundtrip() -> None:
     np.testing.assert_array_equal(np.asarray(moved.value["w"]), np.arange(6).reshape(2, 3))
     # numpy tree moving to a nonexistent accelerator -> explicit reject
     host_tree = {"w": np.arange(6).reshape(2, 3)}
-    rejected = move_tensor_tree(host_tree, DevicePlacement(device_kind="tpu"))
+    rejected = move_tensor_tree(host_tree, DevicePlacement(device_kind="gpu"))
     assert isinstance(rejected, Failure)
     assert isinstance(rejected.error, RejectTransfer)
 
@@ -110,7 +110,7 @@ def test_plan_empty_tree_and_scalar_leaf_bytes() -> None:
     )
     # 0-d leaves count itemsize, not zero (np.prod(()) == 1.0 trap)
     move = plan_tensor_transfer(
-        {"s": np.float64(3.0)}, DevicePlacement(device_kind="tpu")
+        {"s": np.float64(3.0)}, DevicePlacement(device_kind="gpu")
     )
     assert isinstance(move, DirectTransfer) and move.total_bytes == 8
 
@@ -122,3 +122,30 @@ def test_move_device_index_clamps_to_available() -> None:
     moved = move_tensor_tree(tree, DevicePlacement(device_kind="cpu", device_index=999))
     assert isinstance(moved, Success)
     np.testing.assert_array_equal(np.asarray(moved.value["w"]), np.arange(4, dtype=np.float32))
+
+
+def test_compilation_cache_follows_env(monkeypatch) -> None:
+    """With JAX_COMPILATION_CACHE_DIR set, no other directory is set."""
+    from spectralmc_tpu.runtime import jax_runtime
+
+    calls: list[tuple[str, object]] = []
+    monkeypatch.setattr(jax_runtime.jax.config, "update", lambda k, v: calls.append((k, v)))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/somewhere/else")
+    assert jax_runtime.enable_compilation_cache() == "/somewhere/else"
+    assert all(k != "jax_compilation_cache_dir" for k, _ in calls)
+
+
+def test_compilation_cache_defaults_inside_checkout(monkeypatch) -> None:
+    """Without the variable the cache sits at the fixed <checkout>/.jax_cache."""
+    from pathlib import Path
+
+    from spectralmc_tpu.runtime import jax_runtime
+
+    calls: list[tuple[str, object]] = []
+    monkeypatch.setattr(jax_runtime.jax.config, "update", lambda k, v: calls.append((k, v)))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    got = jax_runtime.enable_compilation_cache()
+    root = Path(jax_runtime.__file__).resolve().parents[2]
+    assert got == str(root / ".jax_cache")
+    assert ("jax_compilation_cache_dir", got) in calls
+    assert (root / "pyproject.toml").exists()  # really the checkout root

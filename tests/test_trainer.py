@@ -571,7 +571,7 @@ def test_pallas_stream_version_guard() -> None:
     pricer = expect_success(GbmCVNNPricer.create(base))
     assert pricer.snapshot().pallas_stream_version == 0
 
-    # emulate the TPU side by monkey-patching resolution is heavy; instead
+    # emulating the GPU side by monkey-patching resolution is heavy; instead
     # exercise the guard arithmetic directly against the real table
     from spectralmc_tpu.ops.gbm import ModelKind
     from spectralmc_tpu.ops.gbm_pallas import (
@@ -655,3 +655,70 @@ def test_predict_greeks_bucket_padding_is_bit_transparent() -> None:
     np.testing.assert_array_equal(padded.put_gamma, plain.put_gamma)
     np.testing.assert_array_equal(padded.call_jacobian, plain.call_jacobian)
     assert padded.put.shape == (3,)
+
+
+def test_removed_fused_lsmc_backward_is_a_typed_refusal() -> None:
+    """build_simulation_params refuses lsmc_fused_backward=True and names the
+    removal; False (the default) still builds."""
+    from spectralmc_tpu.core.errors.gbm import InvalidSimulationParams
+    from spectralmc_tpu.ops.gbm import build_simulation_params
+
+    base = dict(
+        timesteps=4, network_size=128, batches_per_mc_run=8, mc_seed=1,
+        payoff="american_put", normalization="none",
+    )
+    err = expect_failure(build_simulation_params(**base, lsmc_fused_backward=True))
+    assert isinstance(err, InvalidSimulationParams)
+    assert err.field == "lsmc_fused_backward" and "removed" in err.reason
+    assert not expect_success(
+        build_simulation_params(**base, lsmc_fused_backward=False)
+    ).lsmc_fused_backward
+
+
+@pytest.mark.parametrize("recorded", [1, 2])
+def test_removed_lsmc_backward_checkpoint_fails_mid_stream(recorded: int) -> None:
+    """A mid-stream checkpoint that recorded a removed fused LSMC backward
+    (versions 1 and 2) fails with EngineMismatch; opting in restamps the
+    shared XLA backward (0); a fresh config is stamped 0 silently."""
+    from spectralmc_tpu.core.errors.trainer import EngineMismatch
+
+    base = make_pricer_config()
+    old = GbmCVNNPricerConfig(
+        sim=base.sim, bounds=base.bounds, cvnn=base.cvnn,
+        global_step=4, lsmc_backward_version=recorded,
+    )
+    err = expect_failure(GbmCVNNPricer.create(old))
+    assert isinstance(err, EngineMismatch) and "lsmc backward" in err.requested
+    pricer = expect_success(GbmCVNNPricer.create(old, allow_engine_fallback=True))
+    assert pricer.snapshot().lsmc_backward_version == 0
+    fresh = GbmCVNNPricerConfig(
+        sim=base.sim, bounds=base.bounds, cvnn=base.cvnn, lsmc_backward_version=recorded
+    )
+    assert expect_success(GbmCVNNPricer.create(fresh)).snapshot().lsmc_backward_version == 0
+
+
+def test_create_pins_highest_matmul_precision() -> None:
+    """GbmCVNNPricer.create applies the runtime policy: float32 matmuls run
+    at 'highest' (no TF32), whatever the process default was."""
+    import jax
+
+    expect_success(GbmCVNNPricer.create(make_pricer_config()))
+    assert jax.config.jax_default_matmul_precision == "highest"
+
+
+@pytest.mark.parametrize("recorded", [0, 1, 2])
+def test_checkpoint_still_decodes_removed_backward_versions(recorded: int) -> None:
+    """ModelCheckpointProto keeps carrying lsmc_backward_version: versions of
+    the removed fused backwards still decode (the mid-stream refusal above
+    needs them), and the 0 default round-trips unchanged."""
+    from spectralmc_tpu.serialization.converters import (
+        checkpoint_from_proto,
+        checkpoint_to_proto,
+    )
+
+    base = make_pricer_config()
+    stamped = GbmCVNNPricerConfig(
+        sim=base.sim, bounds=base.bounds, cvnn=base.cvnn, lsmc_backward_version=recorded
+    )
+    back = expect_success(checkpoint_from_proto(checkpoint_to_proto(stamped)))
+    assert back.lsmc_backward_version == recorded

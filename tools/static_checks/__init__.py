@@ -1,6 +1,6 @@
 """Static-verification suite for spectralmc_tpu.
 
-TPU-native counterpart of the reference's ``tools/`` checkers
+JAX-native counterpart of the reference's ``tools/`` checkers
 (``/root/reference/tools/check_purity.py``, ``check_immutability.py``,
 ``check_pydantic_construction.py``, ``check_type_safety.py``,
 ``check_code.py`` — SURVEY §2.10): a single AST engine

@@ -3,7 +3,7 @@
 The reference polices purity per *file tier* — Tier 2 business logic obeys
 the strictest rules while Tier 3 GPU kernels are exempt
 (``/root/reference/tools/check_purity.py`` file classifier;
-``gbm.py:223`` boundary comment). The TPU build keeps the idea with tiers
+``gbm.py:223`` boundary comment). The JAX build keeps the idea with tiers
 matched to its own layer map (SURVEY §1):
 
 * ``CORE``    — ``core/``: the functional kernel. Stdlib + pydantic only

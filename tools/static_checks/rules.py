@@ -343,7 +343,9 @@ ALLOWED_IMPORTS: dict[str, frozenset[str]] = {
     "ops": frozenset({"core", "ops"}),
     "models": frozenset({"core", "models"}),
     "effects": frozenset({"core", "effects", "ops"}),
-    "training": frozenset({"core", "effects", "models", "ops", "parallel", "training"}),
+    "training": frozenset(
+        {"core", "effects", "models", "ops", "parallel", "runtime", "training"}
+    ),
     "parallel": frozenset({"core", "models", "ops", "parallel", "training"}),
     "serialization": frozenset(
         {"core", "models", "ops", "proto", "serialization", "training"}
@@ -575,7 +577,7 @@ RULES: tuple[Rule, ...] = (
         "layering",
         _ALL_TIERS,
         "no GPU-stack imports",
-        "This framework is TPU-native: jax/XLA/pallas are the only compute\n"
+        "This framework is JAX-native: jax/XLA/pallas are the only compute\n"
         "path. torch/cupy/numba imports indicate reference code leaking in.",
         _check_no_torch,
     ),

@@ -62,7 +62,7 @@ class _Census(ast.NodeVisitor):
     def _fn(self, node: ast.FunctionDef | ast.AsyncFunctionDef) -> None:
         # Pallas kernel bodies are the Tier-3 boundary (the reference's
         # purity checker exempts GPU kernels the same way, SURVEY §2.10):
-        # their parameters are Mosaic Ref objects with no useful public
+        # their parameters are Pallas Ref objects with no useful public
         # type, and annotating them as Any would only pad the Any census.
         if node.name.endswith("_kernel"):
             self.generic_visit(node)
